@@ -1,0 +1,100 @@
+"""The port's fused flow → fields → watershed path against
+``tobac_flow_tpu/pipeline.py`` on ``make_scene(8, 160, 224)``.
+
+- Teacher-forced fields stage (the JAX flows into both): growth and the
+  field are bit-equal; the edge magnitude is within 2 ulp of
+  max(|edge|, 1) (measured: 2 ulp at 762 of 286,720 pixels), because XLA on
+  the CPU contracts the reference's ``gx*gx + gy*gy + gt*gt`` into fused
+  multiply-adds (measured: the three gradients are bit-equal, and
+  ``fma(gt, gt, fma(gx, gx, gy*gy))`` reproduces XLA's sum exactly).
+- Flows: the Farneback tolerances of ``test_torch_farneback.py``, inside
+  the storm mask.
+- The whole slice: foreground IoU ≥ 0.99, and ≥ 0.99 same-label agreement
+  where both label, against JAX ``fused_flow_watershed``.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+# one intra-op thread: the suite runs several test processes side by side, and
+# torch's default thread pool per process oversubscribes the cores
+torch.set_num_threads(1)
+
+import bench  # noqa: E402
+from tobac_flow_tpu import pipeline as jp  # noqa: E402
+from tobac_flow_tpu_torch import pipeline as pp  # noqa: E402
+
+SHAPE = (8, 160, 224)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    bt = bench.make_scene(*SHAPE)
+    markers, n = bench.make_markers(bt)
+    jf = jp.fused_flow_watershed(jnp.asarray(bt), 5.0, markers=markers)
+    fwd, bwd, growth, field, edges = (np.array(a) for a in jp._fields_stage(jnp.asarray(bt), 5.0))
+    return {
+        "bt": bt, "markers": markers, "n": n, "fwd": fwd, "bwd": bwd,
+        "growth": growth, "field": field, "edges": edges,
+        "labels": np.array(jf[3]),
+    }
+
+
+def _ulps(a, b):
+    """|a - b| in float32 ulps of max(|a|, |b|, 1): the edge field is
+    ``magnitude + 1 - field``, so its rounding scale is at least 1."""
+    scale = np.maximum(np.maximum(np.abs(a), np.abs(b)), 1.0).astype(np.float32)
+    return np.abs(a - b) / np.spacing(scale)
+
+
+def test_fields_stage_teacher_forced(scene):
+    fwd, bwd = (torch.from_numpy(scene[k]) for k in ("fwd", "bwd"))
+    radius = pp.adaptive_band_radius(fwd, bwd)
+    assert radius == jp.adaptive_band_radius(jnp.asarray(scene["fwd"]), jnp.asarray(scene["bwd"]))
+    ref = [np.asarray(a) for a in jp._detect_fields_stage(
+        jnp.asarray(scene["bt"]), jnp.asarray(scene["fwd"]), jnp.asarray(scene["bwd"]), 5.0, radius
+    )]
+    growth, field, edges = (a.numpy() for a in pp._detect_fields_stage(
+        torch.from_numpy(scene["bt"]), fwd, bwd, 5.0, radius
+    ))
+    nan_same = np.isnan(ref[0]) == np.isnan(growth)
+    assert nan_same.all()
+    assert np.array_equal(np.nan_to_num(ref[0]), np.nan_to_num(growth))
+    assert np.array_equal(ref[1], field)
+    assert _ulps(ref[2], edges).max() <= 2
+
+
+def test_device_flow(scene):
+    fwd, bwd = pp.device_flow(torch.from_numpy(scene["bt"]))
+    mask = scene["field"] > 0.05
+    for out, ref in ((fwd.numpy(), scene["fwd"]), (bwd.numpy(), scene["bwd"])):
+        assert out.shape == ref.shape and np.abs(out).max() <= 20.0
+        diff = np.abs(out - ref)[mask]
+        assert np.percentile(diff, 99) <= 0.01 and diff.max() <= 0.1
+        assert (np.round(out) == np.round(ref))[mask].mean() >= 0.999
+    # boundary frames take the negated opposite flow
+    assert torch.equal(fwd[-1], -bwd[-1]) and torch.equal(bwd[0], -fwd[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pp.device_flow(torch.from_numpy(scene["bt"]), vr_steps=1)
+
+
+def test_fused_flow_watershed_against_jax(scene):
+    stats = {}
+    fwd, growth, edges, labels = pp.fused_flow_watershed(
+        torch.from_numpy(scene["bt"]), 5.0, markers=scene["markers"], stats=stats
+    )
+    ref, out = scene["labels"], labels.numpy()
+    assert out.shape == SHAPE and out.dtype == np.int32
+    fg_ref, fg_out = ref != 0, out != 0
+    iou = (fg_ref & fg_out).sum() / (fg_ref | fg_out).sum()
+    both = fg_ref & fg_out
+    agree = (ref[both] == out[both]).mean()
+    assert iou >= 0.99 and agree >= 0.99, (iou, agree)
+    assert set(np.unique(out[out > 0])) == set(range(1, scene["n"] + 1))
+    assert np.isfinite(fwd.numpy()).all()
+    for key in ("flow_s", "fields_s", "watershed_s", "jacobi_rounds"):
+        assert key in stats

@@ -1,0 +1,471 @@
+"""Flow-aware multi-marker watershed over a whole (T, H, W) volume
+(counterpart of ``tobac_flow_tpu/ops/watershed.py``).
+
+The reference's serial priority flood is solved as a minimax-path fixed
+point by data-parallel relaxation of a packed state (claim f32, claim2 f32,
+meta i32 = ``min(hops, 255) << 23 | label + 2``); see ``ops/ws_sweeps.py``
+for one sweep's arithmetic and the reference module for why each term is
+there.  Labels depend on where the flood stops, so the schedule is the
+reference's exactly: barrier-first pre-flood for mixed -1/positive markers
+(grace 1, full-state convergence), a 4x max-pooled coarse flood adopted
+deep inside label-uniform territory (when h, w >= 32), forward/backward
+temporal scan rounds (cap 12), then Jacobi rounds in chunks of 16 with
+label-only convergence after ``grace`` quiet rounds.
+
+Temporal taps are pushed along the source pixel's rounded flow with the
+reference's two-lane banded scatter-min, so the same pushes survive
+collisions.  The in-plane sweeps go through ``spatial_sweeps`` (the CUDA
+kernel on the GPU).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from tobac_flow_tpu_torch.ops.warp import shift_axis
+from tobac_flow_tpu_torch.ops.ws_sweeps import (
+    LABEL_MASK,
+    META_MAX,
+    consider,
+    lex_better,
+    pushed,
+    spatial_sweeps,
+)
+
+__all__ = ["watershed", "connectivity_structure"]
+
+_BAND_CAP = 21  # largest temporal band radius (flows are clipped to ±20 px)
+_CHUNK_ITERS = 16  # Jacobi rounds per convergence chunk (the grace count restarts)
+_GRACE = 2  # quiet rounds that end the label-only Jacobi loop
+_SCAN_CAP = 12  # temporal scan rounds, coarse and fine
+_JACOBI_SWEEPS = 8  # in-plane kernel sweeps after each full sweep of a Jacobi round
+_SCAN_SWEEPS = 4  # in-plane kernel sweeps of each frame step of a scan round
+
+
+def connectivity_structure(connectivity):
+    """(3, 3, 3) boolean neighbourhood of an int connectivity (1..3)."""
+    grid = np.abs(np.indices((3, 3, 3)) - 1).sum(axis=0)
+    return grid <= int(connectivity)
+
+
+def _structure_taps_3d(structure):
+    """(dt, dy, dx) neighbour offsets in raster order, excluding the centre."""
+    return tuple(
+        (int(t) - 1, int(r) - 1, int(c) - 1)
+        for t, r, c in zip(*np.nonzero(structure))
+        if not (t == 1 and r == 1 and c == 1)
+    )
+
+
+def _where4(cond, a, b):
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
+def _banded_scatter_min(cost, cost2, meta, disp_y, disp_x, radius):
+    """Each source p pushes (cost, cost2, meta) to p + (disp_y, disp_x)(p);
+    colliding pushes keep the lexicographic minimum.  A y pass over the
+    shifts -R..R (in that order) keeps two lanes per intermediate cell: the
+    best push, and the best push whose x displacement differs from it; an x
+    pass then lands both lanes.  Pushes outside the band are dropped, never
+    clipped."""
+    dev = cost.device
+    inf = torch.tensor(math.inf, device=dev)
+    big_m = torch.tensor(META_MAX, dtype=torch.int32, device=dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    dy = disp_y.to(torch.int32)
+    dx = disp_x.to(torch.int32)
+    lane0 = (
+        torch.full_like(cost, math.inf), torch.full_like(cost, math.inf),
+        torch.full_like(meta, META_MAX), torch.zeros_like(dx),
+    )
+    lane_a, lane_b = lane0, lane0
+    fills = (math.inf, math.inf, META_MAX, 0)
+    for s in range(-radius, radius + 1):
+        m = dy == s
+        cand = (
+            torch.where(m, cost, inf), torch.where(m, cost2, inf),
+            torch.where(m, meta, big_m), torch.where(m, dx, zero_i),
+        )
+        cc, cc2, cm, cdx = (shift_axis(a, s, -2, f) for a, f in zip(cand, fills))
+        ac, ac2, am, adx = lane_a
+        bc, bc2, bm, bdx = lane_b
+        cand_first = lex_better(cc, cc2, cm, ac, ac2, am)
+        top = _where4(cand_first, (cc, cc2, cm, cdx), lane_a)
+        # the displaced runner-up: whichever of {candidate, lane A} lost
+        oc, oc2, om, odx = _where4(cand_first, lane_a, (cc, cc2, cm, cdx))
+        o_ok = (om != META_MAX) & (odx != top[3])
+        b_ok = (bm != META_MAX) & (bdx != top[3])
+        pick_o = o_ok & (~b_ok | lex_better(oc, oc2, om, bc, bc2, bm))
+        b_kept = _where4(b_ok, lane_b, (inf, inf, big_m, zero_i))
+        lane_b = _where4(pick_o, (oc, oc2, om, odx), b_kept)
+        lane_a = top
+
+    out = lane0[:3]
+    for s in range(-radius, radius + 1):
+        for lc, lc2, lm, ldx in (lane_a, lane_b):
+            m = (ldx == s) & (lm != META_MAX)
+            cc = shift_axis(torch.where(m, lc, inf), s, -1, math.inf)
+            cc2 = shift_axis(torch.where(m, lc2, inf), s, -1, math.inf)
+            cm = shift_axis(torch.where(m, lm, big_m), s, -1, META_MAX)
+            better = lex_better(cc, cc2, cm, *out)
+            out = _where4(better, (cc, cc2, cm), out)
+    return out
+
+
+def _shift_t(a, dt, fill):
+    """``a[t + dt]`` with constant fill at the sequence ends (dt = ±1)."""
+    fill_frame = torch.full_like(a[:1], fill)
+    if dt == 1:
+        return torch.cat([a[1:], fill_frame])
+    return torch.cat([fill_frame, a[:-1]])
+
+
+def _split_taps(taps):
+    in_plane = tuple((dy, dx) for dt, dy, dx in taps if dt == 0)
+    temporal = tuple((dt, dy, dx) for dt, dy, dx in taps if dt != 0)
+    return in_plane, temporal
+
+
+def _jacobi_round(field, seeded, floodable, fwd_int, bwd_int, state, taps, radius):
+    """One round of ``_watershed_sweeps``: a full sweep (in-plane taps,
+    then the flow-displaced temporal pushes), then ``_JACOBI_SWEEPS``
+    in-plane sweeps through the kernel."""
+    in_plane, temporal = _split_taps(taps)
+    claim, claim2, meta = state
+    # the in-plane taps of the full sweep: one kernel sweep keeps the best of
+    # (state, in-plane candidates) at floodable pixels; the temporal
+    # candidates then fold into that running best before the same select
+    best = spatial_sweeps(claim, claim2, meta, field, seeded, floodable, in_plane, 1)
+    if temporal:
+        cost, cost2, meta_p = pushed(claim, claim2, meta, field, seeded)
+        for dt, dy, dx in temporal:
+            src_flow = fwd_int if dt == 1 else bwd_int
+            fs = _shift_t(src_flow, -dt, 0)
+            cq = _banded_scatter_min(
+                _shift_t(cost, -dt, math.inf), _shift_t(cost2, -dt, math.inf),
+                _shift_t(meta_p, -dt, META_MAX), fs[..., 1] + dy, fs[..., 0] + dx,
+                radius,
+            )
+            best = consider(best, *cq, field)
+        best = (
+            torch.where(floodable, best[0], claim),
+            torch.where(floodable, best[1], claim2),
+            torch.where(floodable, best[2], meta),
+        )
+    return spatial_sweeps(*best, field, seeded, floodable, in_plane, _JACOBI_SWEEPS)
+
+
+def _changed(new, old, label_only):
+    if label_only:
+        return bool(torch.any((new[2] & LABEL_MASK) != (old[2] & LABEL_MASK)))
+    return bool(
+        torch.any(new[2] != old[2]) or torch.any(new[0] != old[0])
+        or torch.any(new[1] != old[1])
+    )
+
+
+def _watershed_sweeps(field, markers, mask, fwd_int, bwd_int, state, taps,
+                      radius, n_iters, grace, label_only):
+    """Up to ``n_iters`` Jacobi rounds, stopping after ``grace`` consecutive
+    quiet rounds; returns (state, rounds_used)."""
+    seeded = markers != 0
+    floodable = mask & ~seeded
+    quiet = 0
+    it = 0
+    while quiet < grace and it < n_iters:
+        new = _jacobi_round(field, seeded, floodable, fwd_int, bwd_int, state, taps, radius)
+        quiet = 0 if _changed(new, state, label_only) else quiet + 1
+        state = new
+        it += 1
+    return state, it
+
+
+def _watershed_scan_round(field, markers, mask, fwd_int, bwd_int, state, taps,
+                          radius, label_only):
+    """One temporal Gauss–Seidel round: a forward then a backward pass over
+    the frames, each frame taking the already-updated neighbour's pushes
+    and then ``_SCAN_SWEEPS`` in-plane sweeps.  Returns (state, changed)."""
+    seeded = markers != 0
+    floodable = mask & ~seeded
+    in_plane, temporal = _split_taps(taps)
+
+    def direction(state, dt_dir, flow, reverse):
+        d_taps = tuple((dy, dx) for dt, dy, dx in temporal if dt == dt_dir)
+        outs = [torch.empty_like(a) for a in state]
+        carry = None
+        order = range(field.shape[0] - 1, -1, -1) if reverse else range(field.shape[0])
+        for i in order:
+            f, sd, fl = field[i], seeded[i], floodable[i]
+            best = (state[0][i], state[1][i], state[2][i])
+            c, c2, m = best
+            for dy, dx in d_taps:
+                if carry is None:  # nothing pushes into the first frame
+                    continue
+                pc, pc2, pm, pflow = carry
+                cq = _banded_scatter_min(
+                    pc, pc2, pm, pflow[..., 1] + dy, pflow[..., 0] + dx, radius
+                )
+                best = consider(best, *cq, f)
+            c = torch.where(fl, best[0], c)
+            c2 = torch.where(fl, best[1], c2)
+            m = torch.where(fl, best[2], m)
+            c, c2, m = spatial_sweeps(
+                c[None], c2[None], m[None], f[None], sd[None], fl[None],
+                in_plane, _SCAN_SWEEPS,
+            )
+            c, c2, m = c[0], c2[0], m[0]
+            carry = (*pushed(c, c2, m, f, sd), flow[i])
+            outs[0][i], outs[1][i], outs[2][i] = c, c2, m
+        return tuple(outs)
+
+    old = state
+    # forward pass pushes t-1 -> t along each frame's own forward flow;
+    # backward pass pushes t+1 -> t along the backward flow
+    state = direction(state, 1, fwd_int, reverse=False)
+    state = direction(state, -1, bwd_int, reverse=True)
+    return state, _changed(state, old, label_only)
+
+
+def _coarsen(a, f, reduce):
+    """Factor-f pooling of the spatial axes of a (T, H, W) tensor."""
+    t, h, w = a.shape
+    hc, wc = h // f, w // f
+    v = a[:, : hc * f, : wc * f].reshape(t, hc, f, wc, f)
+    if reduce == "max":
+        return v.amax(dim=(2, 4))
+    if reduce == "min":
+        return v.amin(dim=(2, 4))
+    return v.to(torch.float32).mean(dim=(2, 4))
+
+
+def _upsample_nearest(a, f, h, w):
+    up = a.repeat_interleave(f, dim=1).repeat_interleave(f, dim=2)
+    iy = torch.arange(h, device=a.device).clamp(max=up.shape[1] - 1)
+    ix = torch.arange(w, device=a.device).clamp(max=up.shape[2] - 1)
+    return up.index_select(1, iy).index_select(2, ix)
+
+
+def _seed_state(markers):
+    seeded = markers != 0
+    claim = torch.where(seeded, -math.inf, math.inf).to(torch.float32)
+    meta = torch.where(seeded, markers + 2, META_MAX).to(torch.int32)
+    return claim, claim.clone(), meta
+
+
+def _ws_prep(field, markers, mask, fwd, bwd):
+    """NaN fields become +inf barriers; flows are rounded half to even and
+    clipped to ±127; the seeded state is packed; and the band exceedance
+    curve ``exceed[k]`` counts in-mask displacement components with
+    ``|disp| > k``, k = 0..20."""
+    field = torch.where(torch.isnan(field), math.inf, field)
+    fwd_int = torch.clamp(torch.round(fwd), -127, 127).to(torch.int32)
+    bwd_int = torch.clamp(torch.round(bwd), -127, 127).to(torch.int32)
+    mag = torch.maximum(fwd_int.abs(), bwd_int.abs())[mask]
+    counts = torch.bincount(mag.reshape(-1), minlength=128)
+    exceed = counts.flip(0).cumsum(0).flip(0)[1:_BAND_CAP + 1]
+    return field, fwd_int, bwd_int, _seed_state(markers), exceed.cpu().numpy()
+
+
+def _band_radius_from_stats(exceed):
+    """Full coverage: the smallest k with no in-mask displacement beyond it
+    (21 when even 20 does not cover), since out-of-band pushes are dropped."""
+    covered = np.asarray(exceed) == 0
+    return int(np.argmax(covered)) if covered.any() else _BAND_CAP
+
+
+def _ws_coarse_prep(field, markers, mask, fwd_int, bwd_int, factor):
+    """Coarse-grid (max-pooled) inputs of the V-cycle."""
+    cf = _coarsen(field, factor, "max")
+    cmask = _coarsen(mask.to(torch.int32), factor, "max").to(torch.bool)
+    cmark = _coarsen(markers, factor, "max")
+    neg = _coarsen(markers, factor, "min")
+    cmark = torch.where((cmark == 0) & (neg < 0), neg, cmark)
+
+    def cflow(flow):
+        return torch.stack(
+            [(_coarsen(flow[..., c], factor, "mean") / factor).to(torch.int32)
+             for c in (0, 1)], dim=-1,
+        )
+
+    return cf, cmask, cmark, cflow(fwd_int), cflow(bwd_int), _seed_state(cmark)
+
+
+def _sep_window(a, init, op, rc):
+    """Separable (3, 2rc+1, 2rc+1) moving max/min, padded with ``init``."""
+    for axis, r in ((0, 1), (1, rc), (2, rc)):
+        out = a
+        for s in range(-r, r + 1):
+            if s:
+                out = op(out, shift_axis(a, s, axis, init))
+        a = out
+    return a
+
+
+def _ws_adopt(cstate, field, markers, mask, state, factor):
+    """Adopt the coarse flood as the fine initial state only deep inside
+    label-uniform coarse territory (the whole (3, 2rc+1, 2rc+1) coarse
+    neighbourhood carries one label), with hops rescaled to fine units."""
+    h, w = field.shape[1:]
+    seeded = markers != 0
+    up_claim = _upsample_nearest(cstate[0], factor, h, w)
+    up_meta = _upsample_nearest(cstate[2], factor, h, w)
+    yi = torch.arange(h, device=field.device).view(1, h, 1)
+    xi = torch.arange(w, device=field.device).view(1, 1, w)
+    in_cov = (yi < (h // factor) * factor) & (xi < (w // factor) * factor)
+    lab_valid = cstate[2] != META_MAX
+    clabel = (cstate[2] & LABEL_MASK) - 2
+    rc = -(-21 // int(factor)) + 1  # flow band in coarse cells + fuzz margin
+    big = 1 << 30
+    wmax = _sep_window(torch.where(lab_valid, clabel, big), -big, torch.maximum, rc)
+    wmin = _sep_window(torch.where(lab_valid, clabel, -big), big, torch.minimum, rc)
+    deep_same = lab_valid & (wmax == clabel) & (wmin == clabel)
+    up_deep = _upsample_nearest(deep_same.to(torch.int32), factor, h, w).to(torch.bool)
+    adopt = mask & ~seeded & (up_meta != META_MAX) & up_deep & in_cov
+    adopted_claim = torch.maximum(up_claim, field)
+    up_hops = torch.clamp((up_meta >> 23) * int(factor), max=255)
+    up_meta = (up_hops << 23) | (up_meta & LABEL_MASK)
+    return (
+        torch.where(adopt, adopted_claim, state[0]),
+        torch.where(adopt, adopted_claim, state[1]),
+        torch.where(adopt, up_meta, state[2]),
+    )
+
+
+def _ws_decode(meta, markers, mask):
+    """Unpack labels from the converged meta and restore marker identity."""
+    label = torch.where(meta == META_MAX, 0, (meta & LABEL_MASK) - 2)
+    label = torch.where(markers != 0, markers, label)
+    return torch.where((markers != 0) | (mask & (label != 0)), label, 0).to(torch.int32)
+
+
+def _count(stats, key, n):
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + n
+
+
+def _flood_state(field, markers, mask, fwd_int, bwd_int, state, taps, radius, *,
+                 max_iters, run_scans, multigrid, grace=_GRACE, label_only=True,
+                 barrier_first=True, stats=None):
+    """The reference's flood schedule on one volume: barrier-first
+    pre-flood, coarse V-cycle, temporal scans, Jacobi rounds."""
+    h, w = field.shape[1:]
+
+    if (barrier_first and label_only and bool(torch.any(markers < 0))
+            and bool(torch.any(markers > 0))):
+        # flood the -1 barrier alone to full-state convergence first; its
+        # final claims seed the mixed flood (label-only convergence would
+        # otherwise freeze the barrier's silently relaxing claims)
+        neg = torch.where(markers < 0, markers, 0)
+        state0 = _seed_state(neg)
+        in_bar = (state[2] != META_MAX) & ((state[2] & LABEL_MASK) == 1)
+        adopt = in_bar & lex_better(*state, *state0)
+        state0 = tuple(torch.where(adopt, a, b) for a, b in zip(state, state0))
+        state0 = _flood_state(
+            field, neg, mask & (markers <= 0), fwd_int, bwd_int, state0, taps,
+            radius, max_iters=max_iters, run_scans=run_scans, multigrid=multigrid,
+            grace=1, label_only=False,
+            barrier_first=False, stats=stats,
+        )
+        better0 = lex_better(*state0, *state)
+        state = tuple(torch.where(better0, a, b) for a, b in zip(state0, state))
+        del state0
+
+    def scan_rounds(fld, mrk, msk, fwd, bwd, st, rad, key):
+        for _ in range(_SCAN_CAP):
+            st, changed = _watershed_scan_round(
+                fld, mrk, msk, fwd, bwd, st, taps, rad, label_only=label_only
+            )
+            _count(stats, key, 1)
+            if not changed:
+                break
+        return st
+
+    def jacobi(fld, mrk, msk, fwd, bwd, st, rad, cap, key):
+        done = 0
+        while done < cap:
+            n = min(_CHUNK_ITERS, cap - done)
+            st, used = _watershed_sweeps(
+                fld, mrk, msk, fwd, bwd, st, taps, rad, n, grace=grace,
+                label_only=label_only,
+            )
+            _count(stats, key, used)
+            done += used
+            if used < n:  # converged inside the chunk
+                break
+        return st
+
+    factor = 4
+    if multigrid and h >= 8 * factor and w >= 8 * factor:
+        # V-cycle: coarse barriers >= true barriers, so upsampled claims are
+        # upper bounds and the fine rounds relax to the same fixed point
+        cf, cmask, cmark, cfwd, cbwd, cstate = _ws_coarse_prep(
+            field, markers, mask, fwd_int, bwd_int, factor
+        )
+        cradius = max(radius // factor, 1)
+        if run_scans:
+            cstate = scan_rounds(cf, cmark, cmask, cfwd, cbwd, cstate, cradius,
+                                 "coarse_scan_rounds")
+        cstate = jacobi(cf, cmark, cmask, cfwd, cbwd, cstate, cradius,
+                        max_iters // 2 + 8, "coarse_jacobi_rounds")
+        state = _ws_adopt(cstate, field, markers, mask, state, factor)
+        del cstate, cf, cmask, cmark, cfwd, cbwd
+
+    if run_scans:
+        state = scan_rounds(field, markers, mask, fwd_int, bwd_int, state, radius,
+                            "scan_rounds")
+    return jacobi(field, markers, mask, fwd_int, bwd_int, state, radius, max_iters,
+                  "jacobi_rounds")
+
+
+def watershed(forward_flow, backward_flow, field, markers, mask=None,
+              connectivity=1, max_iters: int | None = None, multigrid: bool = True,
+              stats: dict | None = None):
+    """Watershed segmentation of a (T, H, W) volume in the moving frame.
+
+    forward_flow, backward_flow : (T, H, W, 2) flows (channel 0 = x).
+    field : (T, H, W) topography to flood (NaN is a +inf barrier).
+    markers : (T, H, W) int seeds; negative markers flood as barriers.
+    mask : optional bool tensor; False pixels are never flooded.
+    connectivity : 1..3.
+    max_iters : Jacobi round cap (default T + H + W + 32).
+    multigrid : run the 4x coarse V-cycle first (when H, W >= 32).
+    stats : optional dict that receives the round counts.
+
+    The temporal band radius covers every in-mask rounded displacement.
+
+    Returns int32 labels on the device of ``field``.
+    """
+    field = torch.as_tensor(field).to(torch.float32)
+    dev = field.device
+    markers = torch.as_tensor(markers, device=dev).to(torch.int32)
+    if markers.shape != field.shape:
+        raise ValueError(
+            f"`markers` (shape {tuple(markers.shape)}) must have same shape as "
+            f"`image` (shape {tuple(field.shape)})"
+        )
+    if mask is None:
+        mask = torch.ones(field.shape, dtype=torch.bool, device=dev)
+    else:
+        mask = torch.as_tensor(mask, device=dev).to(torch.bool)
+        if mask.shape != field.shape:
+            raise ValueError(
+                f"`mask` (shape {tuple(mask.shape)}) must have same shape "
+                f"as `image` (shape {tuple(field.shape)})"
+            )
+    taps = _structure_taps_3d(connectivity_structure(connectivity))
+    if max_iters is None:
+        max_iters = int(sum(field.shape)) + 32
+    field, fwd_int, bwd_int, state, exceed = _ws_prep(
+        field, markers, mask,
+        torch.as_tensor(forward_flow, device=dev), torch.as_tensor(backward_flow, device=dev),
+    )
+    radius = _band_radius_from_stats(exceed)
+    run_scans = field.shape[0] >= 4 and any(dt != 0 for dt, _, _ in taps)
+    state = _flood_state(
+        field, markers, mask, fwd_int, bwd_int, state, taps, radius,
+        max_iters=max_iters, run_scans=run_scans, multigrid=multigrid, stats=stats,
+    )
+    return _ws_decode(state[2], markers, mask)

@@ -1,0 +1,178 @@
+"""The fused detection path in PyTorch (counterpart of
+``tobac_flow_tpu/pipeline.py``): flow → growth and edge fields → watershed.
+
+Every function takes tensors and runs on their device.  Frame pairs, both
+flow directions and whole volumes are batch dimensions; nothing is mapped
+frame by frame.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+
+import numpy as np
+import torch
+
+from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
+from tobac_flow_tpu_torch.ops.banded import warp_banded_exact, warp_banded_exact_multi
+from tobac_flow_tpu_torch.ops.warp import shift_plane
+from tobac_flow_tpu_torch.ops.watershed import watershed
+
+__all__ = ["device_flow", "fused_flow_watershed"]
+
+
+def _normalise_pair(prev, nxt):
+    """Quantise frame pairs (N, H, W) to [0, 255] over each pair's joint
+    range, NaN filled from the other frame (or 127), rounded half to even."""
+    stack = torch.stack([prev, nxt], dim=1)
+    nan = torch.isnan(stack)
+    vmin = torch.where(nan, math.inf, stack).amin(dim=(1, 2, 3), keepdim=True)
+    vmax = torch.where(nan, -math.inf, stack).amax(dim=(1, 2, 3), keepdim=True)
+    all_nan = nan.all(dim=(1, 2, 3), keepdim=True)
+    vmin = torch.where(all_nan, math.nan, vmin)
+    vmax = torch.where(all_nan, math.nan, vmax)
+    inv = torch.where(vmax > vmin, 1.0 / (vmax - vmin), torch.zeros_like(vmax))
+    scaled = torch.clamp((stack - vmin) * inv, 0.0, 1.0) * 255.0
+    finite = torch.isfinite(scaled)
+    filled = torch.where(finite, scaled, 127.0)
+    a = torch.where(finite[:, 0], filled[:, 0], torch.where(finite[:, 1], filled[:, 1], 127.0))
+    b = torch.where(finite[:, 1], filled[:, 1], torch.where(finite[:, 0], filled[:, 0], 127.0))
+    return torch.round(a), torch.round(b)
+
+
+_FLOW_CLIP = 20.0  # px, as the reference (tobac-flow's flow.py clips to ±20)
+_WS_ITERS = 128  # the fused path's Jacobi round cap
+
+
+def device_flow(data, params: FarnebackParams | None = None, vr_steps=0,
+                smoothing_passes=0):
+    """Forward/backward Farneback flow of a (T, H, W) stack: (T, H, W, 2)
+    each, channel 0 = x.  All 2(T-1) pair solves run as one batch.  The
+    boundary frames take the negated opposite flow; both are clipped to
+    ±20 px."""
+    if vr_steps > 0 or smoothing_passes > 0:
+        raise NotImplementedError(
+            "variational refinement and flow smoothing (the CLI-default flow) "
+            "are not ported yet: ROADMAP.md, 'Modules to port', item 3"
+        )
+    t = data.shape[0]
+    p8, n8 = _normalise_pair(data[:-1], data[1:])
+    model = FarnebackFlow(params).to(data.device)
+    flows = model(torch.cat([p8, n8]), torch.cat([n8, p8]))
+    fwd_pairs, bwd_pairs = flows[: t - 1], flows[t - 1:]
+    fwd = torch.cat([fwd_pairs, -bwd_pairs[-1:]])
+    bwd = torch.cat([-fwd_pairs[:1], bwd_pairs])
+    return fwd.clamp(-_FLOW_CLIP, _FLOW_CLIP), bwd.clamp(-_FLOW_CLIP, _FLOW_CLIP)
+
+
+def _neighbour_frames(data):
+    nan_frame = torch.full_like(data[:1], math.nan)
+    return torch.cat([nan_frame, data[:-1]]), torch.cat([data[1:], nan_frame])
+
+
+def _flow_diff(data, fwd, bwd, radius):
+    """Semi-Lagrangian central difference in the moving frame."""
+    prev, nxt = _neighbour_frames(data)
+    prev_tap = warp_banded_exact(prev, bwd, radius)
+    next_tap = warp_banded_exact(nxt, fwd, radius)
+    f_ok = torch.isfinite(next_tap)
+    b_ok = torch.isfinite(prev_tap)
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    total = torch.where(f_ok, next_tap - data, zero) + torch.where(b_ok, data - prev_tap, zero)
+    return total / torch.clamp(f_ok.to(torch.float32) + b_ok.to(torch.float32), min=1.0)
+
+
+_SOBEL_BASE = np.multiply.outer(
+    np.array([1, 2, 1]), np.multiply.outer(np.array([1, 2, 1]), np.array([-1, 0, 1]))
+)
+_SOBEL_WX = _SOBEL_BASE
+_SOBEL_WY = _SOBEL_BASE.transpose(0, 2, 1)
+_SOBEL_WT = _SOBEL_BASE.transpose(2, 0, 1)
+
+
+def _flow_sobel_uphill(data, fwd, bwd, radius):
+    """27-tap uphill Sobel magnitude: the previous and next planes are read
+    at ``p + flow(p) + o`` through the exact warp, the current plane at
+    ``p + o``, for the 9 in-plane offsets o.  Terms accumulate in the
+    reference's order; zero-weight terms add exactly 0 and are skipped."""
+    offsets = [(ox, oy) for oy in (-1, 0, 1) for ox in (-1, 0, 1)]
+    prev, nxt = _neighbour_frames(data)
+    planes = (
+        warp_banded_exact_multi(prev, bwd, offsets, radius),
+        shift_plane(data, offsets, math.nan),
+        warp_banded_exact_multi(nxt, fwd, offsets, radius),
+    )
+    grads = [torch.zeros_like(data) for _ in range(3)]
+    for pi, taps in enumerate(planes):
+        for oi, (ox, oy) in enumerate(offsets):
+            rect = torch.fmax(taps[oi] - data, torch.zeros((), device=data.device))
+            rect = torch.where(torch.isnan(rect), 0.0, rect)
+            for g, wts in zip(grads, (_SOBEL_WX, _SOBEL_WY, _SOBEL_WT)):
+                wgt = float(wts[pi, oy + 1, ox + 1])
+                if wgt != 0.0:
+                    g.add_(wgt * rect)
+    gx, gy, gt = grads
+    return torch.sqrt(gx * gx + gy * gy + gt * gt)
+
+
+def _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius):
+    growth = -_flow_diff(bt, fwd, bwd, radius) / dt_minutes
+    # the reference's ``/ 10.0``, as XLA compiles it: a multiply by the
+    # float32 reciprocal (so the field and its thresholds match bit for bit)
+    field = torch.clamp((260.0 - bt) * 0.1, 0.0, 1.0)
+    edges = _flow_sobel_uphill(field, fwd, bwd, radius)
+    edges = torch.where(edges > 0, edges + 1.0, edges) - field
+    return growth, field, edges
+
+
+def adaptive_band_radius(fwd, bwd):
+    """Warp band radius covering the flow extrema (one scalar readback),
+    between 2 and 20 px."""
+    m = float(torch.maximum(fwd.abs().max(), bwd.abs().max()))
+    if not np.isfinite(m):
+        return int(_FLOW_CLIP)
+    return int(min(_FLOW_CLIP, max(2, int(np.ceil(m)))))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _fields_stage(bt, dt_minutes, params=None, stats=None):
+    t0 = time.perf_counter()
+    fwd, bwd = device_flow(bt, params)
+    if stats is not None:
+        _sync(bt.device)
+        stats["flow_s"] = time.perf_counter() - t0
+    radius = adaptive_band_radius(fwd, bwd)
+    t0 = time.perf_counter()
+    growth, field, edges = _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius)
+    if stats is not None:
+        _sync(bt.device)
+        stats["fields_s"] = time.perf_counter() - t0
+    return fwd, bwd, growth, field, edges
+
+
+def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None):
+    """bt (T, H, W) float32 → (forward flow, growth, edges, labels).
+
+    ``markers`` (int32, 0 = unlabelled) seeds the watershed with competing
+    basins; ``None`` seeds one label from the core threshold.  ``stats``,
+    when a dict, receives the seconds of each stage (the device is
+    synchronised at each stage boundary) and the watershed's round counts.
+    """
+    fwd, bwd, growth, field, edges = _fields_stage(bt, dt_minutes, params, stats=stats)
+    if markers is None:
+        markers = (field >= 1.0).to(torch.int32)
+    else:
+        markers = torch.as_tensor(markers, dtype=torch.int32, device=bt.device)
+    mask = field > 0.05
+    t0 = time.perf_counter()
+    labels = watershed(fwd, bwd, edges, markers, mask=mask, max_iters=_WS_ITERS,
+                       stats=stats)
+    if stats is not None:
+        _sync(bt.device)
+        stats["watershed_s"] = time.perf_counter() - t0
+    return fwd, growth, edges, labels
