@@ -1,29 +1,42 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab OLD_WS_SWEEPS_CU]
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the port's CUDA kernel (``tobac_flow_tpu_torch/csrc/ws_sweeps.cu``)
-   from source.
-3. Holds the kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (bit-equal is the tolerance), and times both.
-4. Runs the fused flow → fields → watershed slice on ``make_scene(8, 160,
+   from source and prints ptxas's registers, spills and shared memory.
+3. Holds the kernel against its plain PyTorch version on the card
+   (bit-equal is the tolerance) at every shape class the main path launches
+   it with (``SHAPE_CLASSES``) and a ragged (3, 230, 257), for K = 1, 4, 8
+   and the 4 and 8 in-plane taps; then times each shape class (kernel and
+   plain version) and computes its bound.
+4. With ``--ab``, builds an earlier version of the kernel from the given
+   source (C entry ``ws_spatial_sweeps(9 pointers, t, h, w, k, tap_code,
+   n_taps, stream)``, the first version's interface) and times it against
+   the current one at every shape class, in turns (old, new, new, old),
+   checking that both give the same outputs.
+5. Runs the fused flow → fields → watershed slice on ``make_scene(8, 160,
    224)`` on the GPU and on the CPU (plain versions): flows within the CPU
    tests' tolerance, labels at IoU ≥ 0.99.
-5. Runs the full slice, ``make_scene(24, 1024, 1536)`` with its 24 storm
+6. Runs the full slice, ``make_scene(24, 1024, 1536)`` with its 24 storm
    markers, once to warm up and then three timed runs, each with the
-   kernel's launch count reset just before it; checks the outputs, and that
-   the three runs give the same labels.
+   kernel's launch counts reset just before it; checks the outputs, and
+   that the three runs give the same labels.
 
-The second-to-last lines are one JSON object describing each kernel and the
-``nvidia-smi`` name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
-It imports nothing of JAX: the scene comes from ``bench.make_scene`` and
-``bench.make_markers``, which need only numpy and scipy.
+Kernel times are CUDA-event times of a CUDA graph of back-to-back
+launches on the same inputs, after a warm-up, so a launch's host cost does
+not count.  The lines before the last are the per-shape table, one JSON
+object describing each kernel and the ``nvidia-smi`` name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero.  It imports nothing of JAX: the scene comes from
+``bench.make_scene`` and ``bench.make_markers``, which need only numpy and
+scipy.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import gc
 import json
 import shutil
@@ -40,7 +53,19 @@ from tobac_flow_tpu_torch.pipeline import fused_flow_watershed
 
 SMALL = (8, 160, 224)
 FULL = (24, 1024, 1536)
+COARSE = (24, 256, 384)  # the watershed's 4x coarse grid of FULL
 RUNS = 3
+# (shape, K) of every launch of the bench slice: the scan rounds' per-frame
+# steps (K = 4), the in-plane part of each Jacobi round's full sweep (K = 1)
+# and its 8 kernel sweeps (K = 8), on the fine and the coarse grid
+SHAPE_CLASSES = (
+    ((1,) + FULL[1:], 4), ((1,) + COARSE[1:], 4),
+    (FULL, 1), (FULL, 8), (COARSE, 1), (COARSE, 8),
+)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same source
+BYTES_PER_PIXEL = 30  # claim, claim2, meta, field read + seeded, floodable + 3 written
+OPS_PER_TAP = 10  # compares and selects per tap and sweep
 KERNEL_SOURCE = "tobac_flow_tpu_torch/csrc/ws_sweeps.cu"
 KERNEL_REPLACES = "tobac_flow_tpu/ops/ws_pallas.py:151"
 IN_PLANE = {
@@ -90,6 +115,8 @@ def max_abs_err(a, b):
 
 
 def time_ms(fn, reps):
+    """Mean ms per call of ``reps`` back-to-back calls, by CUDA events,
+    after a warm-up call."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -101,38 +128,158 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, launches, replays=3):
+    """Mean device ms per launch: ``launches`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events after a warm-up
+    replay, so that no host work sits between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * launches)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def shape_key(shape, k):
+    return "x".join(map(str, shape)) + f" K={k}"
+
+
+def graph_launches(shape):
+    """Launches per CUDA graph: about 2e8 pixels of work, between 5 and
+    200 launches."""
+    return max(5, min(200, int(2e8 // np.prod(shape))))
+
+
+def bound(shape, k, n_taps):
+    """(bytes ms, operations ms) of one launch: the bytes it must move over
+    the card's memory rate, and the compares and selects its taps need
+    over the float32 rate.  The bound is the larger of the two."""
+    pixels = float(np.prod(shape))
+    return (BYTES_PER_PIXEL * pixels / HBM_BYTES_PER_S * 1e3,
+            k * n_taps * OPS_PER_TAP * pixels / FP32_OPS_PER_S * 1e3)
+
+
 def check_kernel(device):
-    """Kernel against plain version, bit-equal, at the main path's shapes:
-    K = 8 over the volume (Jacobi rounds), K = 1 (the in-plane part of a
-    full sweep), K = 4 on one frame (scan rounds).  Returns the worst
-    |kernel - plain| and both times at the bench shape, connectivity 1,
-    K = 8."""
-    cases = [((3, 230, 257), c, k) for c in (1, 2, 3) for k in (8, 4)]
-    cases += [(FULL, c, k) for c in (1, 2, 3) for k in (8, 4)]
-    cases += [(FULL, 1, 1), ((1,) + FULL[1:], 1, 4)]
+    """Kernel against plain version, bit-equal, at every shape class of the
+    main path and a ragged shape, K = 1, 4, 8, 4 and 8 taps (and
+    connectivity 3, whose in-plane taps are connectivity 2's, at the ragged
+    and the bench shape).  Returns the worst |kernel - plain|."""
+    shapes = sorted({s for s, _ in SHAPE_CLASSES} | {(3, 230, 257)}, key=np.prod)
     worst = 0.0
-    for shape, conn, k in cases:
-        args = sweep_inputs(shape, conn, device, IN_PLANE[conn])
-        plain = ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[conn], k)
-        kern = ws_sweeps.spatial_sweeps(*args, IN_PLANE[conn], k)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("claim", "claim2", "meta"), plain, kern):
+    for shape in shapes:
+        conns = (1, 2, 3) if shape in ((3, 230, 257), FULL) else (1, 2)
+        for conn in conns:
+            args = sweep_inputs(shape, conn, device, IN_PLANE[conn])
+            live = float((args[2] != 2**31 - 1).float().mean())
+            for k in (8, 4, 1):
+                plain = ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[conn], k)
+                kern = ws_sweeps.spatial_sweeps(*args, IN_PLANE[conn], k)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("claim", "claim2", "meta"), plain, kern):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"kernel != plain at {shape} conn={conn} K={k}: {name} differs "
+                            f"at {(a != b).sum().item()} pixels"
+                        )
+                    worst = max(worst, max_abs_err(a, b))
+                changed = float(((kern[0] != args[0]) | (kern[1] != args[1])
+                                 | (kern[2] != args[2])).float().mean())
+                log(f"kernel == plain (bit-equal) at {shape} connectivity={conn} K={k}; "
+                    f"labelled before {live:.4f}, changed by the sweeps {changed:.4f}")
+                del plain, kern
+            del args
+    return worst
+
+
+def time_shape_classes(device, card_line):
+    """Kernel and plain ms per launch, and the bound, at every shape class
+    (connectivity 1, from the live state of ``sweep_inputs``)."""
+    rows = {}
+    for shape, k in SHAPE_CLASSES:
+        args = sweep_inputs(shape, 1, device)
+        ms = graph_ms(lambda: ws_sweeps.spatial_sweeps(*args, IN_PLANE[1], k),
+                      graph_launches(shape))
+        plain_ms = time_ms(lambda: ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k), 3)
+        bytes_ms, ops_ms = bound(shape, k, len(IN_PLANE[1]))
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        rows[shape_key(shape, k)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                     "bound_by": bound_by, "bytes_ms": bytes_ms,
+                                     "ops_ms": ops_ms}
+        log(f"ws_spatial_sweeps at {shape_key(shape, k)}, connectivity 1: kernel {ms:.4f} ms, "
+            f"plain PyTorch {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f} % of the bound [{card_line}]")
+        del args
+    return rows
+
+
+def load_old_kernel(source):
+    """Build an earlier ws_sweeps.cu (C entry ``ws_spatial_sweeps(9
+    pointers, t, h, w, k, tap_code, n_taps, stream)``) into ``_build/ab``
+    and return a launcher with the current wrapper's arguments."""
+    out_dir = ws_sweeps._BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "ws_sweeps_old.so"
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    flags = [f for f in ws_sweeps._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([nvcc, *flags, "-o", str(lib_path), source], check=True,
+                   capture_output=True, text=True)
+    fn = ctypes.CDLL(str(lib_path)).ws_spatial_sweeps
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                   + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+
+    def launch(claim, claim2, meta, field, seeded, floodable, in_plane, k):
+        outs = (torch.empty_like(claim), torch.empty_like(claim2), torch.empty_like(meta))
+        err = fn(*(a.data_ptr() for a in (claim, claim2, meta, field, seeded, floodable)),
+                 *(o.data_ptr() for o in outs), *claim.shape, k,
+                 ws_sweeps._tap_code(tuple(in_plane)), len(in_plane),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"old ws_spatial_sweeps failed: CUDA error {err}")
+        return outs
+
+    return launch
+
+
+def ab_compare(device, source, card_line):
+    """The earlier kernel against the current one at every shape class
+    (connectivity 1) and at the bench shape with 8 taps, timed in turns
+    old, new, new, old; both must give the same outputs."""
+    old = load_old_kernel(source)
+    cases = [(shape, k, 1) for shape, k in SHAPE_CLASSES] + [(FULL, 8, 2)]
+    rows = {}
+    for shape, k, conn in cases:
+        taps = IN_PLANE[conn]
+        args = sweep_inputs(shape, conn, device, taps)
+        for a, b in zip(old(*args, taps, k), ws_sweeps.spatial_sweeps(*args, taps, k)):
             if not torch.equal(a, b):
-                raise AssertionError(
-                    f"kernel != plain at {shape} conn={conn} K={k}: {name} differs "
-                    f"at {(a != b).sum().item()} pixels"
-                )
-            worst = max(worst, max_abs_err(a, b))
-        live = float((args[2] != 2**31 - 1).float().mean())
-        changed = float(((kern[0] != args[0]) | (kern[1] != args[1])
-                         | (kern[2] != args[2])).float().mean())
-        log(f"kernel == plain (bit-equal) at {shape} connectivity={conn} K={k}; "
-            f"labelled before {live:.4f}, changed by the sweeps {changed:.4f}")
-        del args, plain, kern
-    args = sweep_inputs(FULL, 1, device)
-    ms = time_ms(lambda: ws_sweeps.spatial_sweeps(*args, IN_PLANE[1], 8), 10)
-    plain_ms = time_ms(lambda: ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], 8), 3)
-    return worst, ms, plain_ms
+                raise AssertionError(f"old and new kernels differ at {shape} K={k}")
+        n = graph_launches(shape)
+        fns = {"old": lambda: old(*args, taps, k),
+               "new": lambda: ws_sweeps.spatial_sweeps(*args, taps, k)}
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(graph_ms(fns[which], n))
+        key = shape_key(shape, k) + f" taps={len(taps)}"
+        rows[key] = times
+        log(f"A/B {key}: old {times['old'][0]:.4f} / {times['old'][1]:.4f} ms, new "
+            f"{times['new'][0]:.4f} / {times['new'][1]:.4f} ms per launch "
+            f"(old, new, new, old) [{card_line}]")
+        del args, fns
+    return rows
 
 
 def iou_and_agreement(a, b):
@@ -154,6 +301,10 @@ def flow_gate(out, ref, mask):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--ab", metavar="OLD_WS_SWEEPS_CU",
+                        help="time an earlier ws_sweeps.cu against the current one")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
@@ -168,16 +319,22 @@ def main():
     t0 = time.perf_counter()
     ws_sweeps.build_library()
     log(f"built {KERNEL_SOURCE} with nvcc in {time.perf_counter() - t0:.2f} s")
+    for line in ws_sweeps.build_library.report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"ptxas: {line.strip()}")
 
-    worst, ms, plain_ms = check_kernel(device)
-    log(f"ws_spatial_sweeps at {FULL}, connectivity 1, K=8: kernel {ms:.3f} ms, "
-        f"plain PyTorch {plain_ms:.3f} ms [{card_line}]")
+    worst = check_kernel(device)
+    per_shape = time_shape_classes(device, card_line)
+    if opts.ab:
+        ab_compare(device, opts.ab, card_line)
 
-    # small slice: GPU against the CPU plain path
+    # small slice: GPU (the default device) against the CPU plain path
     bt = make_scene(*SMALL)
     markers, n_small = make_markers(bt)
-    gpu = fused_flow_watershed(torch.from_numpy(bt).to(device), 5.0, markers=markers)
-    cpu = fused_flow_watershed(torch.from_numpy(bt), 5.0, markers=markers)
+    gpu = fused_flow_watershed(bt, 5.0, markers=markers)
+    if gpu[3].device.type != "cuda":
+        raise AssertionError(f"fused_flow_watershed ran on {gpu[3].device}, not on the card")
+    cpu = fused_flow_watershed(bt, 5.0, markers=markers, device="cpu")
     field = np.clip((260.0 - bt) / 10.0, 0.0, 1.0)
     p99, mx, rounded = flow_gate(gpu[0].cpu().numpy(), cpu[0].numpy(), field > 0.05)
     iou, agree = iou_and_agreement(gpu[3].cpu().numpy(), cpu[3].numpy())
@@ -192,6 +349,7 @@ def main():
     markers, n_markers = make_markers(bt)
     bt_dev = torch.from_numpy(bt).to(device)
     fused_flow_watershed(bt_dev, 5.0, markers=markers)
+    sweeps = ws_sweeps.spatial_sweeps
     npix = float(np.prod(FULL))
     first = None
     for run in range(1, RUNS + 1):
@@ -200,13 +358,15 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         stats = {}
-        ws_sweeps.spatial_sweeps.launches = 0
+        sweeps.launches = 0
+        sweeps.launches_by_shape.clear()
         t0 = time.perf_counter()
         fwd, growth, edges, labels = fused_flow_watershed(bt_dev, 5.0, markers=markers,
                                                           stats=stats)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = ws_sweeps.spatial_sweeps.launches
+        launches = sweeps.launches
+        by_shape = {shape_key(key[:3], key[3]): n for key, n in sweeps.launches_by_shape.items()}
         peak = torch.cuda.max_memory_allocated()
 
         if not bool(torch.isfinite(fwd).all()):
@@ -232,11 +392,31 @@ def main():
     log("watershed rounds: " + ", ".join(
         f"{k} {v}" for k, v in sorted(stats.items()) if k.endswith("rounds")))
     log(f"labelled pixels {int((lab != 0).sum())}; runs give equal labels")
+    unknown = set(by_shape) - set(per_shape)
+    if unknown:
+        raise AssertionError(f"the slice launched the kernel at untimed shapes {sorted(unknown)}")
+
+    for key, row in per_shape.items():
+        log(f"shape {key}: {row['ms']:.4f} ms per launch, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f} % of the bound, "
+            f"{by_shape.get(key, 0)} launches per run, {by_shape.get(key, 0) * row['ms']:.3f} "
+            f"ms per run [{card_line}]")
+
+    def per_run(field):
+        return sum(n * per_shape[key][field] for key, n in by_shape.items())
 
     print(json.dumps({"kernels": [{
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": per_run("ms"), "plain_ms": per_run("plain_ms"), "bound_ms": per_run("bound_ms"),
+        "bound_by": "bytes" if per_run("bytes_ms") >= per_run("ops_ms") else "operations",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this function",
+        "per": "one bench-slice run: the sum over launches_by_shape of launches x ms per launch",
+        "ms_by_shape": {k: r["ms"] for k, r in per_shape.items()},
+        "plain_ms_by_shape": {k: r["plain_ms"] for k, r in per_shape.items()},
+        "bound_ms_by_shape": {k: r["bound_ms"] for k, r in per_shape.items()},
+        "launches_by_shape": by_shape,
     }]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

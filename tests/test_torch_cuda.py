@@ -28,12 +28,66 @@ def cuda():
 @pytest.mark.parametrize("shape", [(3, 230, 257), (2, 31, 33)])
 def test_kernel_bit_equal_to_plain(cuda, shape, connectivity, k):
     taps = IN_PLANE[connectivity]
-    args = sweep_inputs(shape, connectivity, cuda, taps)
+    _assert_kernel_equals_plain(sweep_inputs(shape, connectivity, cuda, taps), taps, k)
+
+
+def _assert_kernel_equals_plain(args, taps, k):
     ref = ws_sweeps.spatial_sweeps_reference(*args, taps, k)
     out = ws_sweeps.spatial_sweeps(*args, taps, k)
     torch.cuda.synchronize()
     for name, a, b in zip(("claim", "claim2", "meta"), ref, out):
         assert torch.equal(a, b), f"{name}: {(a != b).sum().item()} mismatches"
+
+
+@pytest.mark.parametrize("k", [2, 3, 5, 6, 7])
+def test_generic_instance_bit_equal_to_plain(cuda, k):
+    """K outside {1, 4, 8} runs the instance with run-time K and taps."""
+    _assert_kernel_equals_plain(sweep_inputs((2, 100, 130), k, cuda), IN_PLANE[1], k)
+
+
+@pytest.mark.parametrize("k", [8, 4])
+def test_kernel_keeps_the_callers_tap_order(cuda, k):
+    taps = IN_PLANE[2][::-1]
+    _assert_kernel_equals_plain(sweep_inputs((2, 100, 130), k, cuda, taps), taps, k)
+
+
+@pytest.mark.parametrize("k", [8, 4, 1])
+def test_kernel_nan_and_signed_zero(cuda, k):
+    """NaN fields and claims (the NaN-propagating max, and NaN never
+    comparing less or equal) and -0.0 against +0.0 (equal claims, the
+    first in tap order kept), compared bit for bit."""
+    rng = np.random.default_rng(k)
+    args = sweep_inputs((2, 100, 130), 4, "cpu")
+    claim, claim2, _, field = (a.numpy() for a in args[:4])
+    field[rng.uniform(size=field.shape) < 0.02] = np.nan
+    field[rng.uniform(size=field.shape) < 0.05] = -0.0
+    claim[rng.uniform(size=claim.shape) < 0.01] = np.nan
+    claim[rng.uniform(size=claim.shape) < 0.03] = -0.0
+    claim2[rng.uniform(size=claim2.shape) < 0.01] = np.nan
+    args = [a.to(cuda) for a in args]
+    ref = ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[2], k)
+    out = ws_sweeps.spatial_sweeps(*args, IN_PLANE[2], k)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(ref[0]).any())
+    for name, a, b in zip(("claim", "claim2", "meta"), ref, out):
+        a_bits, b_bits = (x.view(torch.int32) for x in (a, b))
+        assert torch.equal(a_bits, b_bits), f"{name}: {(a_bits != b_bits).sum().item()} mismatches"
+
+
+def test_persistent_grid_and_misaligned_masks(cuda):
+    """More tiles than blocks (each block walks several tiles and prefetches
+    the next), once with the masks as aligned words and once with the masks
+    one byte off a word, which the kernel reads byte by byte."""
+    args = sweep_inputs((4, 512, 512), 3, cuda)
+    plan = ws_sweeps.launch_plan(4, 512, 512, 8, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.n_tiles > plan.grid
+    _assert_kernel_equals_plain(args, IN_PLANE[1], 8)
+    for i in (4, 5):
+        buf = torch.zeros(args[i].numel() + 1, dtype=torch.bool, device=cuda)
+        buf[1:] = args[i].reshape(-1)
+        args[i] = buf[1:].view(args[i].shape)
+    assert args[4].data_ptr() % 4 == 1
+    _assert_kernel_equals_plain(args, IN_PLANE[1], 8)
 
 
 def test_watershed_labels_equal_on_cuda_and_cpu(cuda):
@@ -43,8 +97,9 @@ def test_watershed_labels_equal_on_cuda_and_cpu(cuda):
     flow = rng.normal(0, 1.5, bt.shape + (2,)).astype(np.float32)
     field = np.clip((260.0 - bt) / 10.0, 0.0, 1.0).astype(np.float32)
     args = [torch.from_numpy(a) for a in (flow, -flow, 1.0 - field, markers, field > 0.05)]
-    cpu = watershed(*args[:4], mask=args[4], max_iters=64)
+    cpu = watershed(*args[:4], mask=args[4], max_iters=64, device="cpu")
     before = ws_sweeps.spatial_sweeps.launches
-    gpu = watershed(*[a.to(cuda) for a in args[:4]], mask=args[4].to(cuda), max_iters=64)
+    gpu = watershed(*args[:4], mask=args[4], max_iters=64)  # the card by default
+    assert gpu.device.type == "cuda"
     assert ws_sweeps.spatial_sweeps.launches > before
     assert torch.equal(cpu, gpu.cpu())

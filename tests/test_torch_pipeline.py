@@ -69,7 +69,7 @@ def test_fields_stage_teacher_forced(scene):
 
 
 def test_device_flow(scene):
-    fwd, bwd = pp.device_flow(torch.from_numpy(scene["bt"]))
+    fwd, bwd = pp.device_flow(scene["bt"], device="cpu")
     mask = scene["field"] > 0.05
     for out, ref in ((fwd.numpy(), scene["fwd"]), (bwd.numpy(), scene["bwd"])):
         assert out.shape == ref.shape and np.abs(out).max() <= 20.0
@@ -79,13 +79,14 @@ def test_device_flow(scene):
     # boundary frames take the negated opposite flow
     assert torch.equal(fwd[-1], -bwd[-1]) and torch.equal(bwd[0], -fwd[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pp.device_flow(torch.from_numpy(scene["bt"]), vr_steps=1)
+        pp.device_flow(scene["bt"], vr_steps=1, device="cpu")
 
 
 def test_fused_flow_watershed_against_jax(scene):
     stats = {}
     fwd, growth, edges, labels = pp.fused_flow_watershed(
-        torch.from_numpy(scene["bt"]), 5.0, markers=scene["markers"], stats=stats
+        torch.from_numpy(scene["bt"]), 5.0, markers=scene["markers"], stats=stats,
+        device="cpu",
     )
     ref, out = scene["labels"], labels.numpy()
     assert out.shape == SHAPE and out.dtype == np.int32

@@ -46,7 +46,7 @@ def _labels_both(f, markers, **kw):
     out = pws.watershed(
         *(torch.from_numpy(f[k]) for k in ("fwd", "bwd", "edges")),
         torch.from_numpy(markers), mask=torch.from_numpy(f["mask"]), max_iters=128,
-        stats=stats, **kw,
+        stats=stats, device="cpu", **kw,
     ).numpy()
     return ref, out, stats
 
@@ -69,4 +69,4 @@ def test_band_radius_and_decode():
     assert jws._band_radius_from_stats(np.stack([np.array([5, 2] + [0] * 19), np.full(21, 9)])) == 2
     with pytest.raises(ValueError):
         pws.watershed(torch.zeros(2, 4, 4, 2), torch.zeros(2, 4, 4, 2), torch.zeros(2, 4, 4),
-                      torch.zeros(2, 4, 5, dtype=torch.int32))
+                      torch.zeros(2, 4, 5, dtype=torch.int32), device="cpu")

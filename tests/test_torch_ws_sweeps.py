@@ -127,3 +127,56 @@ def test_wrapper_takes_plain_path_on_cpu_and_checks_inputs():
         ws_sweeps.spatial_sweeps(args[0][:, :10], *args[1:], _in_plane(1), 4)
     with pytest.raises(ValueError):
         ws_sweeps._tap_code(((0, 2),))
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1536), (24, 256, 384), (2, 31, 33)])
+def test_launch_plan_covers_each_pixel_once(shape):
+    """The plan the wrapper hands the kernel, for every K: shared memory
+    within Hopper's per-block limit, the tile interiors covering every
+    pixel of every frame exactly once, and no more persistent blocks than
+    tiles.  One plan serves every tap set: 4 and 8 taps share the tile."""
+    t, h, w = shape
+    for k in range(1, 9):
+        plan = ws_sweeps.launch_plan(t, h, w, k, 132)
+        assert plan.smem_bytes <= ws_sweeps.SMEM_PER_BLOCK
+        assert plan.tile == plan.halo - 2 * k and plan.threads == ws_sweeps.THREADS
+        assert 1 <= plan.grid <= plan.n_tiles == t * plan.tiles_y * plan.tiles_x
+        cover = np.zeros((plan.tiles_y * plan.tile, plan.tiles_x * plan.tile), np.int32)
+        for tile in range(plan.tiles_y * plan.tiles_x):  # the kernel's tile order
+            by, bx = divmod(tile, plan.tiles_x)
+            cover[by * plan.tile:(by + 1) * plan.tile, bx * plan.tile:(bx + 1) * plan.tile] += 1
+        assert (cover[:h, :w] == 1).all()
+        assert (plan.tiles_y - 1) * plan.tile < h and (plan.tiles_x - 1) * plan.tile < w
+    with pytest.raises(ValueError):
+        ws_sweeps.launch_plan(t, h, w, 9, 132)
+
+
+def test_plain_sweeps_nan_and_signed_zero_bit_equal_to_xla():
+    """NaN fields and claims, and -0.0 beside +0.0: the plain sweeps follow
+    the XLA sweep bit for bit (its max propagates NaN and ranks +0 above
+    -0; a NaN claim never compares less or equal)."""
+    in_plane = _in_plane(2)
+    field, seeded, floodable, state = _inputs((2, 40, 52), in_plane, seed=3)
+    rng = np.random.default_rng(3)
+    claim, claim2, _ = state
+    field[rng.uniform(size=field.shape) < 0.03] = np.nan
+    field[rng.uniform(size=field.shape) < 0.1] = -0.0
+    claim[rng.uniform(size=claim.shape) < 0.02] = np.nan
+    claim[rng.uniform(size=claim.shape) < 0.05] = -0.0
+    claim2[rng.uniform(size=claim2.shape) < 0.02] = np.nan
+    out = _port(state, field, seeded, floodable, in_plane, 4)
+    ref = tuple(jnp.asarray(a) for a in state)
+    for _ in range(4):
+        ref = xla_spatial_sweep(ref, jnp.asarray(field), jnp.asarray(seeded),
+                                jnp.asarray(floodable), in_plane)
+    assert np.isnan(out[0]).any() and np.signbit(out[0][out[0] == 0]).any()
+    for name, a, b in zip(("claim", "claim2", "meta"), ref, out):
+        a = np.asarray(a)
+        assert np.array_equal(a.view(np.int32), b.view(np.int32)), name
+    specials = np.array([0.0, -0.0, np.nan, 1.0, -np.inf], np.float32)
+    a, b = (x.ravel() for x in np.meshgrid(specials, specials))
+    ours = ws_sweeps.max_nan(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    theirs = np.asarray(jnp.maximum(a, b))
+    nan = np.isnan(theirs)
+    assert np.array_equal(np.isnan(ours), nan)
+    assert np.array_equal(ours[~nan].view(np.int32), theirs[~nan].view(np.int32))

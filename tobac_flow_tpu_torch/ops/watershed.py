@@ -25,12 +25,14 @@ import math
 import numpy as np
 import torch
 
+from tobac_flow_tpu_torch.device import resolve_device
 from tobac_flow_tpu_torch.ops.warp import shift_axis
 from tobac_flow_tpu_torch.ops.ws_sweeps import (
     LABEL_MASK,
     META_MAX,
     consider,
     lex_better,
+    max_nan,
     pushed,
     spatial_sweeps,
 )
@@ -324,7 +326,7 @@ def _ws_adopt(cstate, field, markers, mask, state, factor):
     deep_same = lab_valid & (wmax == clabel) & (wmin == clabel)
     up_deep = _upsample_nearest(deep_same.to(torch.int32), factor, h, w).to(torch.bool)
     adopt = mask & ~seeded & (up_meta != META_MAX) & up_deep & in_cov
-    adopted_claim = torch.maximum(up_claim, field)
+    adopted_claim = max_nan(up_claim, field)
     up_hops = torch.clamp((up_meta >> 23) * int(factor), max=255)
     up_meta = (up_hops << 23) | (up_meta & LABEL_MASK)
     return (
@@ -422,7 +424,7 @@ def _flood_state(field, markers, mask, fwd_int, bwd_int, state, taps, radius, *,
 
 def watershed(forward_flow, backward_flow, field, markers, mask=None,
               connectivity=1, max_iters: int | None = None, multigrid: bool = True,
-              stats: dict | None = None):
+              stats: dict | None = None, device=None):
     """Watershed segmentation of a (T, H, W) volume in the moving frame.
 
     forward_flow, backward_flow : (T, H, W, 2) flows (channel 0 = x).
@@ -433,14 +435,17 @@ def watershed(forward_flow, backward_flow, field, markers, mask=None,
     max_iters : Jacobi round cap (default T + H + W + 32).
     multigrid : run the 4x coarse V-cycle first (when H, W >= 32).
     stats : optional dict that receives the round counts.
+    device : where the flood runs; the arrays (numpy or tensors) are moved
+        there.  ``None`` means CUDA and raises where CUDA is not available;
+        ``"cpu"`` runs the plain PyTorch version of every op.
 
     The temporal band radius covers every in-mask rounded displacement.
 
-    Returns int32 labels on the device of ``field``.
+    Returns int32 labels on ``device``.
     """
-    field = torch.as_tensor(field).to(torch.float32)
-    dev = field.device
-    markers = torch.as_tensor(markers, device=dev).to(torch.int32)
+    dev = resolve_device(device)
+    field = torch.as_tensor(field).to(dev, torch.float32)
+    markers = torch.as_tensor(markers).to(dev, torch.int32)
     if markers.shape != field.shape:
         raise ValueError(
             f"`markers` (shape {tuple(markers.shape)}) must have same shape as "
@@ -449,7 +454,7 @@ def watershed(forward_flow, backward_flow, field, markers, mask=None,
     if mask is None:
         mask = torch.ones(field.shape, dtype=torch.bool, device=dev)
     else:
-        mask = torch.as_tensor(mask, device=dev).to(torch.bool)
+        mask = torch.as_tensor(mask).to(dev, torch.bool)
         if mask.shape != field.shape:
             raise ValueError(
                 f"`mask` (shape {tuple(mask.shape)}) must have same shape "
@@ -460,7 +465,7 @@ def watershed(forward_flow, backward_flow, field, markers, mask=None,
         max_iters = int(sum(field.shape)) + 32
     field, fwd_int, bwd_int, state, exceed = _ws_prep(
         field, markers, mask,
-        torch.as_tensor(forward_flow, device=dev), torch.as_tensor(backward_flow, device=dev),
+        torch.as_tensor(forward_flow).to(dev), torch.as_tensor(backward_flow).to(dev),
     )
     radius = _band_radius_from_stats(exceed)
     run_scans = field.shape[0] >= 4 and any(dt != 0 for dt, _, _ in taps)

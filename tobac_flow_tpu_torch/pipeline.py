@@ -1,9 +1,11 @@
 """The fused detection path in PyTorch (counterpart of
 ``tobac_flow_tpu/pipeline.py``): flow → growth and edge fields → watershed.
 
-Every function takes tensors and runs on their device.  Frame pairs, both
-flow directions and whole volumes are batch dimensions; nothing is mapped
-frame by frame.
+The entry points ``device_flow`` and ``fused_flow_watershed`` take numpy
+arrays or tensors, move them once to ``device`` (CUDA unless the caller
+passes ``device="cpu"``) and return tensors there; the functions below them
+run on their inputs' device.  Frame pairs, both flow directions and whole
+volumes are batch dimensions; nothing is mapped frame by frame.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import time
 import numpy as np
 import torch
 
+from tobac_flow_tpu_torch.device import resolve_device
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
 from tobac_flow_tpu_torch.ops.banded import warp_banded_exact, warp_banded_exact_multi
 from tobac_flow_tpu_torch.ops.warp import shift_plane
@@ -46,16 +49,17 @@ _WS_ITERS = 128  # the fused path's Jacobi round cap
 
 
 def device_flow(data, params: FarnebackParams | None = None, vr_steps=0,
-                smoothing_passes=0):
+                smoothing_passes=0, device=None):
     """Forward/backward Farneback flow of a (T, H, W) stack: (T, H, W, 2)
-    each, channel 0 = x.  All 2(T-1) pair solves run as one batch.  The
-    boundary frames take the negated opposite flow; both are clipped to
-    ±20 px."""
+    each, channel 0 = x, on ``device`` (see :func:`resolve_device`).  All
+    2(T-1) pair solves run as one batch.  The boundary frames take the
+    negated opposite flow; both are clipped to ±20 px."""
     if vr_steps > 0 or smoothing_passes > 0:
         raise NotImplementedError(
             "variational refinement and flow smoothing (the CLI-default flow) "
             "are not ported yet: ROADMAP.md, 'Modules to port', item 3"
         )
+    data = torch.as_tensor(data).to(resolve_device(device))
     t = data.shape[0]
     p8, n8 = _normalise_pair(data[:-1], data[1:])
     model = FarnebackFlow(params).to(data.device)
@@ -142,7 +146,7 @@ def _sync(device):
 
 def _fields_stage(bt, dt_minutes, params=None, stats=None):
     t0 = time.perf_counter()
-    fwd, bwd = device_flow(bt, params)
+    fwd, bwd = device_flow(bt, params, device=bt.device)
     if stats is not None:
         _sync(bt.device)
         stats["flow_s"] = time.perf_counter() - t0
@@ -155,23 +159,28 @@ def _fields_stage(bt, dt_minutes, params=None, stats=None):
     return fwd, bwd, growth, field, edges
 
 
-def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None):
-    """bt (T, H, W) float32 → (forward flow, growth, edges, labels).
+def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
+                         device=None):
+    """bt (T, H, W) float32 → (forward flow, growth, edges, labels), all on
+    ``device``: CUDA when it is ``None`` (raising where CUDA is not
+    available), the plain PyTorch versions when it is ``"cpu"``.
 
     ``markers`` (int32, 0 = unlabelled) seeds the watershed with competing
     basins; ``None`` seeds one label from the core threshold.  ``stats``,
     when a dict, receives the seconds of each stage (the device is
     synchronised at each stage boundary) and the watershed's round counts.
     """
+    dev = resolve_device(device)
+    bt = torch.as_tensor(bt).to(dev)
     fwd, bwd, growth, field, edges = _fields_stage(bt, dt_minutes, params, stats=stats)
     if markers is None:
         markers = (field >= 1.0).to(torch.int32)
     else:
-        markers = torch.as_tensor(markers, dtype=torch.int32, device=bt.device)
+        markers = torch.as_tensor(markers).to(dev, torch.int32)
     mask = field > 0.05
     t0 = time.perf_counter()
     labels = watershed(fwd, bwd, edges, markers, mask=mask, max_iters=_WS_ITERS,
-                       stats=stats)
+                       stats=stats, device=dev)
     if stats is not None:
         _sync(bt.device)
         stats["watershed_s"] = time.perf_counter() - t0
