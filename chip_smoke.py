@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--ab OLD_WS_SWEEPS_CU]
+    python3 chip_smoke.py
 
 1. Requires CUDA and prints the card's name and power limit.
 2. Builds the port's CUDA kernel (``tobac_flow_tpu_torch/csrc/ws_sweeps.cu``)
@@ -10,22 +10,24 @@
    it with (``SHAPE_CLASSES``) and a ragged (3, 230, 257), for K = 1, 4, 8
    and the 4 and 8 in-plane taps; then times each shape class (kernel and
    plain version) and computes its bound.
-4. With ``--ab``, builds an earlier version of the kernel from the given
-   source (C entry ``ws_spatial_sweeps(9 pointers, t, h, w, k, tap_code,
-   n_taps, stream)``, the first version's interface) and times it against
-   the current one at every shape class, in turns (old, new, new, old),
-   checking that both give the same outputs.
-5. Runs the fused flow → fields → watershed slice on ``make_scene(8, 160,
+4. Runs the fused flow → fields → watershed slice on ``make_scene(8, 160,
    224)`` on the GPU and on the CPU (plain versions): flows within the CPU
    tests' tolerance, labels at IoU ≥ 0.99.
-6. Runs the full slice, ``make_scene(24, 1024, 1536)`` with its 24 storm
+5. Runs the full slice, ``make_scene(24, 1024, 1536)`` with its 24 storm
    markers, once to warm up and then three timed runs, each with the
    kernel's launch counts reset just before it; checks the outputs, and
    that the three runs give the same labels.
+6. Runs the full slice once more under ``torch.profiler``: for each stage
+   (the pipeline's ``stage.*`` ranges) the device operations started in it,
+   the union of their intervals and the stage's idle share, and the
+   kernel's own launches and device time in the run.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
-launches on the same inputs, after a warm-up, so a launch's host cost does
-not count.  The lines before the last are the per-shape table, one JSON
+launches, after a warm-up, so a launch's host cost does not count.  Each
+launch reads one of enough copies of its inputs, and writes outputs of its
+own, that it finds them cold in the card's 50 MB L2 cache; a launch that
+fits in the L2 is also timed on one copy of its inputs (L2 warm).  The
+lines before the last are the per-shape table, the profile, one JSON
 object describing each kernel and the ``nvidia-smi`` name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero.  It imports nothing of JAX: the scene comes from
@@ -35,10 +37,9 @@ scipy.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -64,8 +65,18 @@ SHAPE_CLASSES = (
 )
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same source
-BYTES_PER_PIXEL = 30  # claim, claim2, meta, field read + seeded, floodable + 3 written
-OPS_PER_TAP = 10  # compares and selects per tap and sweep
+# compares, selects and integer adds issue at 64 lanes per SM and clock on
+# sm_90: a quarter of the float32 rate, which counts an FMA at 128 lanes as
+# two operations
+INT_CMP_OPS_PER_S = FP32_OPS_PER_S / 4
+L2_BYTES = 50 * 2**20  # H100 SXM
+IN_BYTES_PER_PIXEL = 18  # claim, claim2, meta, field (4 B) + seeded, floodable (1 B)
+OUT_BYTES_PER_PIXEL = 12  # claim, claim2, meta
+# compares, selects and integer adds of one tap's fold in one sweep (the
+# lexicographic compare, the hop tick, the three selects); the candidate
+# build, once per cell and sweep, is not counted
+OPS_PER_TAP = 19
+STAGES = ("stage.flow", "stage.fields", "stage.watershed")
 KERNEL_SOURCE = "tobac_flow_tpu_torch/csrc/ws_sweeps.cu"
 KERNEL_REPLACES = "tobac_flow_tpu/ops/ws_pallas.py:151"
 IN_PLANE = {
@@ -128,16 +139,22 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def graph_ms(fn, launches, replays=3):
-    """Mean device ms per launch: ``launches`` calls captured in one CUDA
-    graph, replayed ``replays`` times between CUDA events after a warm-up
-    replay, so that no host work sits between the launches."""
-    fn()
+def graph_ms(fn, arg_sets, launches, replays=3):
+    """Mean device ms per launch of ``fn``: ``launches`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events after a
+    warm-up replay, so that no host work sits between the launches.  Launch
+    i reads ``arg_sets[i % len(arg_sets)]``; with more than one set, every
+    launch's outputs are kept until the graph is freed, so that no two
+    launches of a replay write the same memory."""
+    fn(*arg_sets[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
+    kept = []
     with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
+        for i in range(launches):
+            out = fn(*arg_sets[i % len(arg_sets)])
+            if len(arg_sets) > 1:
+                kept.append(out)
     graph.replay()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -147,9 +164,16 @@ def graph_ms(fn, launches, replays=3):
     stop.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(stop) / (replays * launches)
-    del graph
+    del graph, kept, out
     torch.cuda.empty_cache()
     return ms
+
+
+def cold_sets(args):
+    """``args`` and enough copies of it that together they hold at least
+    four times the L2, so that a launch does not find its inputs there."""
+    n = -(-4 * L2_BYTES // (IN_BYTES_PER_PIXEL * args[0].numel()))
+    return [args] + [[a.clone() for a in args] for _ in range(n - 1)]
 
 
 def shape_key(shape, k):
@@ -164,11 +188,11 @@ def graph_launches(shape):
 
 def bound(shape, k, n_taps):
     """(bytes ms, operations ms) of one launch: the bytes it must move over
-    the card's memory rate, and the compares and selects its taps need
-    over the float32 rate.  The bound is the larger of the two."""
+    the card's memory rate, and the compares, selects and adds its taps
+    need over their issue rate.  The bound is the larger of the two."""
     pixels = float(np.prod(shape))
-    return (BYTES_PER_PIXEL * pixels / HBM_BYTES_PER_S * 1e3,
-            k * n_taps * OPS_PER_TAP * pixels / FP32_OPS_PER_S * 1e3)
+    return ((IN_BYTES_PER_PIXEL + OUT_BYTES_PER_PIXEL) * pixels / HBM_BYTES_PER_S * 1e3,
+            k * n_taps * OPS_PER_TAP * pixels / INT_CMP_OPS_PER_S * 1e3)
 
 
 def check_kernel(device):
@@ -204,82 +228,83 @@ def check_kernel(device):
 
 
 def time_shape_classes(device, card_line):
-    """Kernel and plain ms per launch, and the bound, at every shape class
+    """Kernel ms per launch with its inputs cold in L2 and, where one
+    launch fits in L2, warm; plain ms; and the bound, at every shape class
     (connectivity 1, from the live state of ``sweep_inputs``)."""
     rows = {}
     for shape, k in SHAPE_CLASSES:
         args = sweep_inputs(shape, 1, device)
-        ms = graph_ms(lambda: ws_sweeps.spatial_sweeps(*args, IN_PLANE[1], k),
-                      graph_launches(shape))
+        sets = cold_sets(args)
+
+        def launch(*a):
+            return ws_sweeps.spatial_sweeps(*a, IN_PLANE[1], k)
+
+        ms = graph_ms(launch, sets, graph_launches(shape))
+        warm_ms = graph_ms(launch, [args], graph_launches(shape)) if len(sets) > 1 else ms
         plain_ms = time_ms(lambda: ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k), 3)
         bytes_ms, ops_ms = bound(shape, k, len(IN_PLANE[1]))
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-        rows[shape_key(shape, k)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                     "bound_by": bound_by, "bytes_ms": bytes_ms,
-                                     "ops_ms": ops_ms}
-        log(f"ws_spatial_sweeps at {shape_key(shape, k)}, connectivity 1: kernel {ms:.4f} ms, "
-            f"plain PyTorch {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / ms:.1f} % of the bound [{card_line}]")
-        del args
+        rows[shape_key(shape, k)] = {"ms": ms, "warm_l2_ms": warm_ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by,
+                                     "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+        log(f"ws_spatial_sweeps at {shape_key(shape, k)}, connectivity 1: kernel {ms:.4f} ms "
+            f"cold ({len(sets)} input copies), {warm_ms:.4f} ms on one copy; plain PyTorch "
+            f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}; bytes {bytes_ms:.4f}, "
+            f"operations {ops_ms:.4f}), {100 * bound_ms / ms:.1f} % of the bound [{card_line}]")
+        del args, sets
     return rows
 
 
-def load_old_kernel(source):
-    """Build an earlier ws_sweeps.cu (C entry ``ws_spatial_sweeps(9
-    pointers, t, h, w, k, tap_code, n_taps, stream)``) into ``_build/ab``
-    and return a launcher with the current wrapper's arguments."""
-    out_dir = ws_sweeps._BUILD_DIR / "ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "ws_sweeps_old.so"
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    flags = [f for f in ws_sweeps._NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    subprocess.run([nvcc, *flags, "-o", str(lib_path), source], check=True,
-                   capture_output=True, text=True)
-    fn = ctypes.CDLL(str(lib_path)).ws_spatial_sweeps
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                   + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
-
-    def launch(claim, claim2, meta, field, seeded, floodable, in_plane, k):
-        outs = (torch.empty_like(claim), torch.empty_like(claim2), torch.empty_like(meta))
-        err = fn(*(a.data_ptr() for a in (claim, claim2, meta, field, seeded, floodable)),
-                 *(o.data_ptr() for o in outs), *claim.shape, k,
-                 ws_sweeps._tap_code(tuple(in_plane)), len(in_plane),
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"old ws_spatial_sweeps failed: CUDA error {err}")
-        return outs
-
-    return launch
+def union_ms(intervals):
+    """ms covered by the union of (start, end) intervals in µs."""
+    total, end = 0.0, -math.inf
+    for lo, hi in sorted(intervals):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total / 1e3
 
 
-def ab_compare(device, source, card_line):
-    """The earlier kernel against the current one at every shape class
-    (connectivity 1) and at the bench shape with 8 taps, timed in turns
-    old, new, new, old; both must give the same outputs."""
-    old = load_old_kernel(source)
-    cases = [(shape, k, 1) for shape, k in SHAPE_CLASSES] + [(FULL, 8, 2)]
-    rows = {}
-    for shape, k, conn in cases:
-        taps = IN_PLANE[conn]
-        args = sweep_inputs(shape, conn, device, taps)
-        for a, b in zip(old(*args, taps, k), ws_sweeps.spatial_sweeps(*args, taps, k)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"old and new kernels differ at {shape} K={k}")
-        n = graph_launches(shape)
-        fns = {"old": lambda: old(*args, taps, k),
-               "new": lambda: ws_sweeps.spatial_sweeps(*args, taps, k)}
-        times = {"old": [], "new": []}
-        for which in ("old", "new", "new", "old"):
-            times[which].append(graph_ms(fns[which], n))
-        key = shape_key(shape, k) + f" taps={len(taps)}"
-        rows[key] = times
-        log(f"A/B {key}: old {times['old'][0]:.4f} / {times['old'][1]:.4f} ms, new "
-            f"{times['new'][0]:.4f} / {times['new'][1]:.4f} ms per launch "
-            f"(old, new, new, old) [{card_line}]")
-        del args, fns
-    return rows
+def profile_slice(bt, markers, card_line):
+    """One run of the slice under torch.profiler.  For each stage range,
+    the device operations (kernels, copies, fills) that start in it, the
+    union of their intervals and the share of the stage's wall time the
+    device spent idle; and the sweep kernel's launches and device ms.
+    Returns (the sweep kernel's device ms in the run, its launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.synchronize()
+    ws_sweeps.spatial_sweeps.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_flow_watershed(bt, 5.0, markers=markers, stats={})
+        torch.cuda.synchronize()
+    counted = ws_sweeps.spatial_sweeps.launches
+    events = prof.events()
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+              if e.name in STAGES and e.device_type == DeviceType.CPU}
+    ops = [(e.time_range.start, e.time_range.end, e.name) for e in events
+           if e.device_type == DeviceType.CUDA and e.name not in STAGES
+           and not getattr(e, "is_user_annotation", False)]
+    if set(ranges) != set(STAGES) or not ops:
+        raise AssertionError(f"profile: stage ranges {sorted(ranges)}, {len(ops)} device ops")
+    for name in STAGES:
+        lo, hi = ranges[name]
+        mine = [(s, e) for s, e, _ in ops if lo <= s <= hi]
+        busy = union_ms(mine)
+        wall = (hi - lo) / 1e3
+        log(f"profile, {name}: wall {wall / 1e3:.3f} s, device busy {busy / 1e3:.3f} s, "
+            f"{len(mine)} device ops, idle {100 * (1 - busy / wall):.1f} % [{card_line}]")
+    sweeps = [(s, e) for s, e, n in ops if "sweeps_kernel" in n]
+    ms = sum(e - s for s, e in sweeps) / 1e3
+    if len(sweeps) != counted:
+        raise AssertionError(f"profile: {len(sweeps)} sweep kernels ran, the wrapper "
+                             f"counted {counted} launches")
+    log(f"profile: {len(ops)} device ops in the run; the sweep kernel {len(sweeps)} launches, "
+        f"{ms:.3f} ms of device time [{card_line}]")
+    return ms, len(sweeps)
 
 
 def iou_and_agreement(a, b):
@@ -301,10 +326,6 @@ def flow_gate(out, ref, mask):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--ab", metavar="OLD_WS_SWEEPS_CU",
-                        help="time an earlier ws_sweeps.cu against the current one")
-    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
@@ -325,8 +346,6 @@ def main():
 
     worst = check_kernel(device)
     per_shape = time_shape_classes(device, card_line)
-    if opts.ab:
-        ab_compare(device, opts.ab, card_line)
 
     # small slice: GPU (the default device) against the CPU plain path
     bt = make_scene(*SMALL)
@@ -395,12 +414,15 @@ def main():
     unknown = set(by_shape) - set(per_shape)
     if unknown:
         raise AssertionError(f"the slice launched the kernel at untimed shapes {sorted(unknown)}")
+    profiled_ms, profiled_launches = profile_slice(bt_dev, markers, card_line)
 
     for key, row in per_shape.items():
-        log(f"shape {key}: {row['ms']:.4f} ms per launch, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), {100 * row['bound_ms'] / row['ms']:.1f} % of the bound, "
-            f"{by_shape.get(key, 0)} launches per run, {by_shape.get(key, 0) * row['ms']:.3f} "
-            f"ms per run [{card_line}]")
+        n = by_shape.get(key, 0)
+        log(f"shape {key}: {row['ms']:.4f} ms per launch cold ({row['warm_l2_ms']:.4f} warm), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound, {n} launches per run, "
+            f"{n * row['ms']:.3f} ms per run cold ({n * row['warm_l2_ms']:.3f} warm) "
+            f"[{card_line}]")
 
     def per_run(field):
         return sum(n * per_shape[key][field] for key, n in by_shape.items())
@@ -412,8 +434,12 @@ def main():
         "bound_by": "bytes" if per_run("bytes_ms") >= per_run("ops_ms") else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
-        "per": "one bench-slice run: the sum over launches_by_shape of launches x ms per launch",
+        "per": "one bench-slice run: the sum over launches_by_shape of launches x ms per "
+               "launch, with the inputs cold in L2",
+        "warm_l2_ms": per_run("warm_l2_ms"),
+        "profiled_ms": profiled_ms, "profiled_launches": profiled_launches,
         "ms_by_shape": {k: r["ms"] for k, r in per_shape.items()},
+        "warm_l2_ms_by_shape": {k: r["warm_l2_ms"] for k, r in per_shape.items()},
         "plain_ms_by_shape": {k: r["plain_ms"] for k, r in per_shape.items()},
         "bound_ms_by_shape": {k: r["bound_ms"] for k, r in per_shape.items()},
         "launches_by_shape": by_shape,

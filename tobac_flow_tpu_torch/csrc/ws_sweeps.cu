@@ -62,7 +62,11 @@
 // - Compile-time K and taps.  Instances for K in {1, 4, 8} with the 4 and
 //   8 taps of connectivity 1 and 2 in the reference's order, and one
 //   instance with run-time K and taps for every other value.  K = 1 (the
-//   in-plane part of a full sweep) runs the same tile: its halo costs 7 %.
+//   in-plane part of a full sweep) runs the same tile.  A streaming path of
+//   16-byte loads for it was neither written nor measured.  Its halo adds
+//   7 % to the bytes, but what holds K = 1 near half its bound is more
+//   likely the bytes in flight: one tile per SM, whose next tile's copies
+//   start only after the first sweep's barrier (not measured either).
 // - Host side.  ws_sweeps_prepare raises each instance's dynamic shared
 //   memory limit once per device; a launch only checks its plan.
 //
@@ -70,7 +74,9 @@
 // instances, ptxas -v on sm_90a, no spills; the run-time instance 128 and
 // 32 B of spills) and shared memory allow one 512-thread block per SM, so
 // a 1024 x 1536 frame's 532 tiles at K = 4 take 5 rounds where 4.03 would
-// do, and at K = 1 only one tile per SM is in flight.
+// do, and at K = 1 only one tile per SM is in flight.  The bound that
+// chip_smoke.py computes counts the 19 operations a tap at the compare
+// rate, so it reads "operations" at K = 4 and 8 and "bytes" at K = 1.
 //
 // Shared memory per block: two candidate buffers 2 x 4 x (4096 + 8) x 4 B,
 // staging 4 x 4096 x 4 B + 2 x 64 x 72 B = 206,080 B.

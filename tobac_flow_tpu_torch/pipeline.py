@@ -15,6 +15,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from tobac_flow_tpu_torch.device import resolve_device
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
@@ -146,16 +147,18 @@ def _sync(device):
 
 def _fields_stage(bt, dt_minutes, params=None, stats=None):
     t0 = time.perf_counter()
-    fwd, bwd = device_flow(bt, params, device=bt.device)
-    if stats is not None:
-        _sync(bt.device)
-        stats["flow_s"] = time.perf_counter() - t0
+    with record_function("stage.flow"):
+        fwd, bwd = device_flow(bt, params, device=bt.device)
+        if stats is not None:
+            _sync(bt.device)
+            stats["flow_s"] = time.perf_counter() - t0
     radius = adaptive_band_radius(fwd, bwd)
     t0 = time.perf_counter()
-    growth, field, edges = _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius)
-    if stats is not None:
-        _sync(bt.device)
-        stats["fields_s"] = time.perf_counter() - t0
+    with record_function("stage.fields"):
+        growth, field, edges = _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius)
+        if stats is not None:
+            _sync(bt.device)
+            stats["fields_s"] = time.perf_counter() - t0
     return fwd, bwd, growth, field, edges
 
 
@@ -169,6 +172,8 @@ def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
     basins; ``None`` seeds one label from the core threshold.  ``stats``,
     when a dict, receives the seconds of each stage (the device is
     synchronised at each stage boundary) and the watershed's round counts.
+    Each stage runs inside a profiler range, ``stage.flow``,
+    ``stage.fields`` and ``stage.watershed``.
     """
     dev = resolve_device(device)
     bt = torch.as_tensor(bt).to(dev)
@@ -179,9 +184,10 @@ def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
         markers = torch.as_tensor(markers).to(dev, torch.int32)
     mask = field > 0.05
     t0 = time.perf_counter()
-    labels = watershed(fwd, bwd, edges, markers, mask=mask, max_iters=_WS_ITERS,
-                       stats=stats, device=dev)
-    if stats is not None:
-        _sync(bt.device)
-        stats["watershed_s"] = time.perf_counter() - t0
+    with record_function("stage.watershed"):
+        labels = watershed(fwd, bwd, edges, markers, mask=mask, max_iters=_WS_ITERS,
+                           stats=stats, device=dev)
+        if stats is not None:
+            _sync(bt.device)
+            stats["watershed_s"] = time.perf_counter() - t0
     return fwd, growth, edges, labels
