@@ -6,7 +6,7 @@
 2. Builds the port's CUDA kernel (``tobac_flow_tpu_torch/csrc/ws_sweeps.cu``)
    from source and prints ptxas's registers, spills and shared memory.
 3. Holds the kernel against its plain PyTorch version on the card
-   (bit-equal is the tolerance) at every shape class the main path launches
+   (bit-equal is the tolerance) at every shape class either path launches
    it with (``SHAPE_CLASSES``) and a ragged (3, 230, 257), for K = 1, 4, 8
    and the 4 and 8 in-plane taps; then times each shape class (kernel and
    plain version) and computes its bound.
@@ -14,13 +14,27 @@
    224)`` on the GPU and on the CPU (plain versions): flows within the CPU
    tests' tolerance, labels at IoU ≥ 0.99.
 5. Runs the full slice, ``make_scene(24, 1024, 1536)`` with its 24 storm
-   markers, once to warm up and then three timed runs, each with the
+   markers, once to warm up and then two timed runs, each with the
    kernel's launch counts reset just before it; checks the outputs, and
-   that the three runs give the same labels.
+   that the runs give the same labels.
 6. Runs the full slice once more under ``torch.profiler``: for each stage
    (the pipeline's ``stage.*`` ranges) the device operations started in it,
-   the union of their intervals and the stage's idle share, and the
-   kernel's own launches and device time in the run.
+   the union of their intervals and the stage's idle share; the device
+   ops with the most time, by name; and the kernel's own launches and
+   device time in the run.
+7. The detection chain (``detect.chain.run_detection``: the CLI-default
+   flow, cores, anvil markers, thick anvils, their relabelling, thin
+   anvils) on ``tools/parity_detect.make_multistorm_scene``.  On (9, 64,
+   96): the card's flows against the CPU's, with the CPU tests' Farneback
+   tolerance inside the storm mask on every frame the CPU reproduces from
+   the card's Farneback flows (refinement is chaotic where the flow is
+   noise), and the labels of every stage on the card identical to the
+   CPU's given the same flows.  On (6, 1024, 1536), the bench frame at its
+   full width with the depth cut to 6 frames: a warm-up run and two timed
+   runs, each stage's seconds and objects, the peak memory and the
+   kernel's launches by shape; every stage finds objects and the runs give
+   equal labels.  Then one profiled run, split by the chain's stages as in
+   6 (by their host spans, the profiler recording device activity alone).
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -30,8 +44,9 @@ fits in the L2 is also timed on one copy of its inputs (L2 warm).  The
 lines before the last are the per-shape table, the profile, one JSON
 object describing each kernel and the ``nvidia-smi`` name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero.  It imports nothing of JAX: the scene comes from
-``bench.make_scene`` and ``bench.make_markers``, which need only numpy and
+exits non-zero.  It imports nothing of JAX: the scenes come from
+``bench.make_scene``, ``bench.make_markers`` and
+``tools/parity_detect.make_multistorm_scene``, which need only numpy and
 scipy.
 """
 
@@ -49,19 +64,35 @@ import numpy as np
 import torch
 
 from bench import make_markers, make_scene
+from tobac_flow_tpu_torch.core.flow import Flow, create_flow
+from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
+from tobac_flow_tpu_torch.detect.chain import DetectionOptions, run_detection
+from tobac_flow_tpu_torch.models.farneback import FarnebackFlow
 from tobac_flow_tpu_torch.ops import ws_sweeps
-from tobac_flow_tpu_torch.pipeline import fused_flow_watershed
+from tobac_flow_tpu_torch.pipeline import _normalise_pair, fused_flow_watershed, pair_flows
+from tools.parity_detect import make_multistorm_scene
 
 SMALL = (8, 160, 224)
 FULL = (24, 1024, 1536)
 COARSE = (24, 256, 384)  # the watershed's 4x coarse grid of FULL
-RUNS = 3
-# (shape, K) of every launch of the bench slice: the scan rounds' per-frame
-# steps (K = 4), the in-plane part of each Jacobi round's full sweep (K = 1)
-# and its 8 kernel sweeps (K = 8), on the fine and the coarse grid
+RUNS = 2
+CHAIN_SMALL = (9, 64, 96)
+# the chain at the bench frame's full width with its depth cut to 6 frames:
+# on an H100 80GB HBM3 (700 W) a run took 280-293 s at 24 frames and
+# 138-143 s at 8, and the profiled 8-frame run with its analysis 720 s,
+# too long for a warm-up, two timed runs and a profiled run in this script
+CHAIN_FULL = (6,) + FULL[1:]
+CHAIN_RUNS = 2
+CHAIN_LABELS = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
+CHAIN_COARSE = (CHAIN_FULL[0],) + COARSE[1:]
+# (shape, K) of every launch of the bench slice and the chain: the scan
+# rounds' per-frame steps (K = 4), the in-plane part of each Jacobi round's
+# full sweep (K = 1) and its 8 kernel sweeps (K = 8), on the fine and the
+# coarse grid
 SHAPE_CLASSES = (
     ((1,) + FULL[1:], 4), ((1,) + COARSE[1:], 4),
     (FULL, 1), (FULL, 8), (COARSE, 1), (COARSE, 8),
+    (CHAIN_FULL, 1), (CHAIN_FULL, 8), (CHAIN_COARSE, 1), (CHAIN_COARSE, 8),
 )
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same source
@@ -77,6 +108,8 @@ OUT_BYTES_PER_PIXEL = 12  # claim, claim2, meta
 # build, once per cell and sweep, is not counted
 OPS_PER_TAP = 19
 STAGES = ("stage.flow", "stage.fields", "stage.watershed")
+CHAIN_RANGES = tuple(f"stage.{name}" for name in CHAIN_STAGES)
+TOP_OPS = 8  # device ops by total time printed per profile
 KERNEL_SOURCE = "tobac_flow_tpu_torch/csrc/ws_sweeps.cu"
 KERNEL_REPLACES = "tobac_flow_tpu/ops/ws_pallas.py:151"
 IN_PLANE = {
@@ -266,11 +299,16 @@ def union_ms(intervals):
     return total / 1e3
 
 
-def profile_slice(bt, markers, card_line):
-    """One run of the slice under torch.profiler.  For each stage range,
+def profile_run(run, stages, card_line, what, host_spans=False):
+    """One call of ``run`` under torch.profiler.  For each stage range,
     the device operations (kernels, copies, fills) that start in it, the
     union of their intervals and the share of the stage's wall time the
-    device spent idle; and the sweep kernel's launches and device ms.
+    device spent idle; the device ops with the most time, by name; and the
+    sweep kernel's launches and device ms.  The stage ranges are the
+    ``record_function`` ranges of the profiler's CPU activity or, with
+    ``host_spans``, the ``{stage}_span_ns`` Unix-clock spans in the dict
+    ``run`` returns, with the profiler recording device activity alone
+    (the profiler's post-processing then handles a third of the events).
     Returns (the sweep kernel's device ms in the run, its launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -278,32 +316,53 @@ def profile_slice(bt, markers, card_line):
     gc.collect()
     torch.cuda.synchronize()
     ws_sweeps.spatial_sweeps.launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fused_flow_watershed(bt, 5.0, markers=markers, stats={})
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CUDA]
+    if not host_spans:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        returned = run()
         torch.cuda.synchronize()
     counted = ws_sweeps.spatial_sweeps.launches
-    events = prof.events()
-    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
-              if e.name in STAGES and e.device_type == DeviceType.CPU}
-    ops = [(e.time_range.start, e.time_range.end, e.name) for e in events
-           if e.device_type == DeviceType.CUDA and e.name not in STAGES
-           and not getattr(e, "is_user_annotation", False)]
-    if set(ranges) != set(STAGES) or not ops:
+    # the raw events (µs), without building the profiler's event tree
+    ranges, ops = {}, []
+    for e in prof.profiler.kineto_results.events():
+        name, device = e.name(), e.device_type()
+        start = e.start_ns() / 1e3
+        span = (start, start + e.duration_ns() / 1e3)
+        if name in stages:
+            if device == DeviceType.CPU:
+                ranges[name] = span
+        elif device == DeviceType.CUDA and not e.is_user_annotation():
+            ops.append((*span, name))
+    if host_spans:
+        ranges = {name: tuple(t / 1e3 for t in returned[name[len("stage."):] + "_span_ns"])
+                  for name in stages}
+    if set(ranges) != set(stages) or not ops:
         raise AssertionError(f"profile: stage ranges {sorted(ranges)}, {len(ops)} device ops")
-    for name in STAGES:
+    for name in stages:
         lo, hi = ranges[name]
         mine = [(s, e) for s, e, _ in ops if lo <= s <= hi]
         busy = union_ms(mine)
         wall = (hi - lo) / 1e3
-        log(f"profile, {name}: wall {wall / 1e3:.3f} s, device busy {busy / 1e3:.3f} s, "
-            f"{len(mine)} device ops, idle {100 * (1 - busy / wall):.1f} % [{card_line}]")
+        log(f"profile of {what}, {name}: wall {wall / 1e3:.3f} s, device busy "
+            f"{busy / 1e3:.3f} s, {len(mine)} device ops, idle "
+            f"{100 * (1 - busy / wall):.1f} % [{card_line}]")
+    by_name = {}
+    for s, e, n in ops:
+        total, count = by_name.get(n, (0.0, 0))
+        by_name[n] = (total + e - s, count + 1)
+    for n, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_OPS]:
+        log(f"profile of {what}, top device ops: {total / 1e3:.3f} ms in {count} launches "
+            f"of {n[:110]} [{card_line}]")
     sweeps = [(s, e) for s, e, n in ops if "sweeps_kernel" in n]
     ms = sum(e - s for s, e in sweeps) / 1e3
     if len(sweeps) != counted:
         raise AssertionError(f"profile: {len(sweeps)} sweep kernels ran, the wrapper "
                              f"counted {counted} launches")
-    log(f"profile: {len(ops)} device ops in the run; the sweep kernel {len(sweeps)} launches, "
-        f"{ms:.3f} ms of device time [{card_line}]")
+    log(f"profile of {what}: {len(ops)} device ops in the run; the sweep kernel "
+        f"{len(sweeps)} launches, {ms:.3f} ms of device time; profiled run and its "
+        f"analysis {time.perf_counter() - t0:.1f} s [{card_line}]")
     return ms, len(sweeps)
 
 
@@ -323,6 +382,140 @@ def flow_gate(out, ref, mask):
     if not (p99 <= 0.01 and mx <= 0.1 and rounded >= 0.999):
         raise AssertionError(f"GPU flow vs CPU flow: p99 {p99}, max {mx}, rounded {rounded}")
     return p99, mx, rounded
+
+
+def chain_times(t):
+    """A 5-minute time coordinate of ``t`` steps."""
+    return np.datetime64("2020-06-01T00:00", "ns") + np.arange(t) * np.timedelta64(300, "s")
+
+
+class GivenFlows(torch.nn.Module):
+    """A pair-flow model that returns flows computed elsewhere."""
+
+    def __init__(self, flows):
+        super().__init__()
+        self.flows = flows
+
+    def forward(self, prev, nxt):
+        return self.flows.to(prev.device)
+
+
+def within(out, want, mask):
+    """The CPU tests' Farneback tolerance inside ``mask``."""
+    diff = np.abs(out - want)[mask]
+    return bool(np.percentile(diff, 99) <= 0.01 and diff.max() <= 0.1
+                and (np.round(out) == np.round(want))[mask].mean() >= 0.999)
+
+
+def check_chain_small(device, card_line):
+    """The chain on the card against the chain on the CPU at CHAIN_SMALL.
+    Flows: the CPU tests' tolerance inside the storm mask on every frame
+    where the CPU reproduces its own CLI-default flow from the card's
+    Farneback flows.  Labels: identical at every stage given the same
+    flows, and no stage empty."""
+    opts = DetectionOptions()
+    bt, wvd, swd = make_multistorm_scene(*CHAIN_SMALL)
+    times = chain_times(CHAIN_SMALL[0])
+    kw = dict(vr_steps=opts.vr_steps, smoothing_passes=opts.smoothing_passes,
+              interp_method=opts.interp_method)
+    gpu = create_flow(bt, **kw)
+    if gpu.device.type != device.type:
+        raise AssertionError(f"create_flow ran on {gpu.device}, not on the card")
+    cpu = create_flow(bt, device="cpu", **kw)
+    frames = torch.from_numpy(bt).to(device)
+    p8, n8 = _normalise_pair(frames[:-1], frames[1:])
+    raw = FarnebackFlow().to(device)(torch.cat([p8, n8]), torch.cat([n8, p8])).cpu()
+    again = [f.clamp(-20, 20) for f in pair_flows(bt, GivenFlows(raw), device="cpu", **kw)]
+    storm = bt < 250
+    checked, worst = 0, 0.0
+    for g, c, a in zip(gpu.flow, cpu.flow, again):
+        g, c, a = g.cpu().numpy(), c.numpy(), a.numpy()
+        for t in range(CHAIN_SMALL[0]):
+            if storm[t].any() and within(a[t], c[t], storm[t]):
+                if not within(g[t], c[t], storm[t]):
+                    raise AssertionError(f"chain small: card flow vs CPU flow at frame {t}")
+                checked += 1
+                worst = max(worst, float(np.abs(g[t] - c[t])[storm[t]].max()))
+    if checked < 6:
+        raise AssertionError(f"chain small: only {checked} frames reproducible on the CPU")
+    log(f"chain small {CHAIN_SMALL}: card vs CPU CLI-default flow within the Farneback "
+        f"tolerance on the {checked} of {2 * CHAIN_SMALL[0]} frames the CPU reproduces, "
+        f"max |card - CPU| there {worst:.3g} px")
+    out_gpu = run_detection(bt, wvd, swd, times, flow=gpu)
+    out_cpu = run_detection(bt, wvd, swd, times,
+                            flow=Flow(gpu.forward_flow.cpu(), gpu.backward_flow.cpu()))
+    counts = {}
+    for name in CHAIN_LABELS:
+        a, b = out_gpu[name].cpu(), out_cpu[name]
+        counts[name] = int(b.max())
+        if counts[name] == 0 or not torch.equal(a, b):
+            raise AssertionError(f"chain small: {name} on the card != on the CPU "
+                                 f"({int((a != b).sum())} pixels) or empty ({counts[name]})")
+    log(f"chain small {CHAIN_SMALL}: labels on the card identical to the CPU's at every "
+        f"stage given the same flows; objects {counts}")
+
+
+def run_chain_full(device, card_line):
+    """The chain at CHAIN_FULL: a warm-up run, CHAIN_RUNS timed runs (the
+    kernel's counts reset just before each and read just after), then a
+    profiled run.  Returns (launches per run, launches by shape, profiled
+    sweep ms, profiled sweep launches)."""
+    t0 = time.perf_counter()
+    bt, wvd, swd = make_multistorm_scene(*CHAIN_FULL)
+    times = chain_times(CHAIN_FULL[0])
+    log(f"made the chain's scene {CHAIN_FULL} on the host in {time.perf_counter() - t0:.1f} s")
+    fields = [torch.from_numpy(a).to(device) for a in (bt, wvd, swd)]
+    del bt, wvd, swd
+    t0 = time.perf_counter()
+    run_detection(*fields, times)
+    torch.cuda.synchronize()
+    log(f"chain {CHAIN_FULL} warm-up run {time.perf_counter() - t0:.3f} s [{card_line}]")
+    sweeps = ws_sweeps.spatial_sweeps
+    first = None
+    for run in range(1, CHAIN_RUNS + 1):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        stats = {}
+        sweeps.launches = 0
+        sweeps.launches_by_shape.clear()
+        t0 = time.perf_counter()
+        out = run_detection(*fields, times, stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = sweeps.launches
+        by_shape = {shape_key(key[:3], key[3]): n for key, n in sweeps.launches_by_shape.items()}
+        peak = torch.cuda.max_memory_allocated()
+        if not bool(torch.isfinite(out["flow"].forward_flow).all()):
+            raise AssertionError("chain: non-finite flow")
+        if launches == 0:
+            raise AssertionError("chain: the ws_sweeps kernel was never launched")
+        labels = {name: out[name] for name in CHAIN_LABELS}
+        empty = [name for name, lab in labels.items() if int(lab.max()) == 0]
+        if empty:
+            raise AssertionError(f"chain run {run}: no objects in {empty}")
+        if first is None:
+            first = labels
+        else:
+            differ = [name for name in CHAIN_LABELS if not torch.equal(first[name], labels[name])]
+            if differ:
+                raise AssertionError(f"chain run {run}: {differ} differ from run 1")
+        log(f"chain {CHAIN_FULL} run {run} [{card_line}]: {seconds:.3f} s; " + ", ".join(
+            f"{name} {stats[name + '_s']:.3f} s" for name in CHAIN_STAGES) + "; objects " + ", ".join(
+            f"{name} {stats[name + '_n']}" for name in CHAIN_STAGES if name != "flow")
+            + f"; kernel launches {launches} {by_shape}; device memory resident at start "
+            f"{resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
+        del out, labels
+    log("chain: the runs give equal labels at every stage")
+    def profiled_run():
+        stats = {}
+        run_detection(*fields, times, stats=stats)
+        return stats
+
+    profiled = profile_run(profiled_run, CHAIN_RANGES, card_line, "the detection chain",
+                           host_spans=True)
+    return launches, by_shape, *profiled
 
 
 def main():
@@ -414,35 +607,59 @@ def main():
     unknown = set(by_shape) - set(per_shape)
     if unknown:
         raise AssertionError(f"the slice launched the kernel at untimed shapes {sorted(unknown)}")
-    profiled_ms, profiled_launches = profile_slice(bt_dev, markers, card_line)
+    profiled_ms, profiled_launches = profile_run(
+        lambda: fused_flow_watershed(bt_dev, 5.0, markers=markers, stats={}), STAGES,
+        card_line, "the bench slice")
+    del bt_dev, first
+
+    # the detection chain: card against CPU on a small scene, then the full
+    # scene through the kernel
+    check_chain_small(device, card_line)
+    chain_launches, chain_by_shape, chain_profiled_ms, chain_profiled_launches = (
+        run_chain_full(device, card_line))
+    unknown = set(chain_by_shape) - set(per_shape)
+    if unknown:
+        raise AssertionError(f"the chain launched the kernel at untimed shapes {sorted(unknown)}")
+    paths = {"fused_flow_watershed": by_shape, "run_detection": chain_by_shape}
 
     for key, row in per_shape.items():
         n = by_shape.get(key, 0)
+        m = chain_by_shape.get(key, 0)
         log(f"shape {key}: {row['ms']:.4f} ms per launch cold ({row['warm_l2_ms']:.4f} warm), "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound, {n} launches per run, "
-            f"{n * row['ms']:.3f} ms per run cold ({n * row['warm_l2_ms']:.3f} warm) "
-            f"[{card_line}]")
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; launches per run "
+            f"{n} (bench slice), {m} (detection chain); ms per run cold "
+            f"{n * row['ms']:.3f} and {m * row['ms']:.3f} [{card_line}]")
 
-    def per_run(field):
-        return sum(n * per_shape[key][field] for key, n in by_shape.items())
+    def per_run(field, counts):
+        return sum(n * per_shape[key][field] for key, n in counts.items())
+
+    def both(field):
+        return sum(per_run(field, counts) for counts in paths.values())
 
     print(json.dumps({"kernels": [{
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": per_run("ms"), "plain_ms": per_run("plain_ms"), "bound_ms": per_run("bound_ms"),
-        "bound_by": "bytes" if per_run("bytes_ms") >= per_run("ops_ms") else "operations",
+        "replaces": KERNEL_REPLACES, "launches": launches + chain_launches,
+        "max_abs_err": worst,
+        "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
+        "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
-        "per": "one bench-slice run: the sum over launches_by_shape of launches x ms per "
-               "launch, with the inputs cold in L2",
-        "warm_l2_ms": per_run("warm_l2_ms"),
-        "profiled_ms": profiled_ms, "profiled_launches": profiled_launches,
+        "per": "one run of each main path (the bench slice and the detection chain): the "
+               "sum over its launches_by_shape of launches x ms per launch, with the "
+               "inputs cold in L2",
+        "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},
+        "ms_by_path": {p: per_run("ms", c) for p, c in paths.items()},
+        "plain_ms_by_path": {p: per_run("plain_ms", c) for p, c in paths.items()},
+        "bound_ms_by_path": {p: per_run("bound_ms", c) for p, c in paths.items()},
+        "warm_l2_ms": both("warm_l2_ms"),
+        "profiled_ms": profiled_ms + chain_profiled_ms,
+        "profiled_launches": profiled_launches + chain_profiled_launches,
         "ms_by_shape": {k: r["ms"] for k, r in per_shape.items()},
         "warm_l2_ms_by_shape": {k: r["warm_l2_ms"] for k, r in per_shape.items()},
         "plain_ms_by_shape": {k: r["plain_ms"] for k, r in per_shape.items()},
         "bound_ms_by_shape": {k: r["bound_ms"] for k, r in per_shape.items()},
-        "launches_by_shape": by_shape,
+        "launches_by_shape": paths,
     }]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,23 @@
-"""The port's CUDA kernel on the card: it must build from ``csrc/`` and
-be bit-equal to its plain PyTorch version.  These tests need an NVIDIA GPU
+"""The port on the card: its CUDA kernel must build from ``csrc/`` and be
+bit-equal to its plain PyTorch version, and the paths through it must
+give the CPU's results.  These tests need an NVIDIA GPU
 and nvcc, and skip elsewhere; run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.  They import no JAX.
 """
 
 import numpy as np
 import pytest
+import scipy.ndimage as ndi
 import torch
 
 from bench import make_markers, make_scene
 from chip_smoke import IN_PLANE, sweep_inputs
+from tobac_flow_tpu_torch.core.flow import Flow, create_flow
+from tobac_flow_tpu_torch.detect.chain import run_detection
 from tobac_flow_tpu_torch.ops import ws_sweeps
+from tobac_flow_tpu_torch.ops.ccl import flat_label
 from tobac_flow_tpu_torch.ops.watershed import watershed
+from tools.parity_detect import make_multistorm_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +109,33 @@ def test_watershed_labels_equal_on_cuda_and_cpu(cuda):
     assert gpu.device.type == "cuda"
     assert ws_sweeps.spatial_sweeps.launches > before
     assert torch.equal(cpu, gpu.cpu())
+
+
+@pytest.mark.parametrize("p", [0.3, 0.55, 0.65])
+def test_flat_label_on_card_matches_scipy(cuda, p):
+    mask = np.random.default_rng(7).uniform(size=(4, 200, 300)) < p
+    out = flat_label(torch.from_numpy(mask).to(cuda))
+    assert out.device.type == "cuda"
+    ref = np.zeros(mask.shape, np.int64)
+    offset = 0
+    for i, frame in enumerate(mask):
+        lab, n = ndi.label(frame, structure=ndi.generate_binary_structure(2, 1))
+        ref[i] = np.where(lab > 0, lab + offset, 0)
+        offset += n
+    assert np.array_equal(out.cpu().numpy(), ref)
+
+
+def test_chain_on_card_equals_cpu(cuda):
+    """The detection chain on the card and on the CPU, given the same
+    (card-computed, CLI-default) flows: identical labels at every stage."""
+    t, h, w = 9, 64, 96
+    bt, wvd, swd = make_multistorm_scene(t, h, w)
+    times = np.datetime64("2020-06-01T00:00", "ns") + np.arange(t) * np.timedelta64(300, "s")
+    flow = create_flow(bt, vr_steps=1, smoothing_passes=1, interp_method="cubic")
+    assert flow.device.type == "cuda"
+    gpu = run_detection(bt, wvd, swd, times, flow=flow)
+    cpu = run_detection(bt, wvd, swd, times,
+                        flow=Flow(flow.forward_flow.cpu(), flow.backward_flow.cpu()))
+    for name in ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label"):
+        assert gpu[name].device.type == "cuda" and int(cpu[name].max()) > 0, name
+        assert torch.equal(gpu[name].cpu(), cpu[name]), name

@@ -11,7 +11,9 @@ import torch
 # torch's default thread pool per process oversubscribes the cores
 torch.set_num_threads(1)
 
-from tobac_flow_tpu_torch import device_flow, fused_flow_watershed, watershed  # noqa: E402
+from tobac_flow_tpu_torch import (  # noqa: E402
+    Flow, create_flow, device_flow, fused_flow_watershed, run_detection, watershed,
+)
 from tobac_flow_tpu_torch.device import resolve_device  # noqa: E402
 
 T, H, W = 3, 12, 16
@@ -26,14 +28,24 @@ def _ws_args():
     return flow, -flow, field, markers
 
 
-@pytest.mark.parametrize("entry", ["fused_flow_watershed", "device_flow", "watershed"])
+ENTRIES = ["fused_flow_watershed", "device_flow", "watershed", "create_flow",
+           "run_detection", "Flow.from_numpy"]
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
 def test_entry_points_raise_without_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     bt = np.full((T, H, W), 250.0, np.float32)
+    times = np.arange(T) * np.timedelta64(300, "s") + np.datetime64("2020-06-01", "ns")
+    flow = np.zeros((T, H, W, 2), np.float32)
     call = {
         "fused_flow_watershed": lambda: fused_flow_watershed(bt, 5.0),
         "device_flow": lambda: device_flow(bt),
         "watershed": lambda: watershed(*_ws_args()),
+        "create_flow": lambda: create_flow(bt, vr_steps=1, smoothing_passes=1,
+                                           interp_method="cubic"),
+        "run_detection": lambda: run_detection(bt, bt - 260, bt - 250, times),
+        "Flow.from_numpy": lambda: Flow.from_numpy(flow, flow),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()

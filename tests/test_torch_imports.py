@@ -43,7 +43,24 @@ def test_bench_scene_needs_no_jax():
     assert "numpy" in roots and not roots & set(FORBIDDEN), sorted(roots)
 
 
+def test_parity_scene_needs_no_jax():
+    """``chip_smoke.py`` imports ``tools/parity_detect.make_multistorm_scene``
+    for the detection chain's scene: the module's top level and that
+    function must import no JAX."""
+    tree = ast.parse((PORT.parent / "tools" / "parity_detect.py").read_text())
+    nodes = [n for n in tree.body if not isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    nodes += [n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "make_multistorm_scene"]
+    assert any(isinstance(n, ast.FunctionDef) for n in nodes)
+    roots = set().union(*(_imported_roots(n) for n in nodes))
+    assert "numpy" in roots and not roots & set(FORBIDDEN), sorted(roots)
+
+
 def test_scan_sees_the_package():
-    names = {p.name for p in SOURCES}
-    assert {"ws_sweeps.py", "watershed.py", "farneback.py", "pipeline.py"} <= names
+    names = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"ops/ws_sweeps.py", "ops/watershed.py", "models/farneback.py", "pipeline.py",
+            "ops/convolve.py", "ops/sobel.py", "ops/morphology.py", "ops/ccl.py",
+            "core/flow.py", "models/variational.py", "segment/label.py",
+            "detect/fused.py", "detect/detection.py", "detect/chain.py",
+            "utils/labels.py"} <= names
     assert "tobac_flow_tpu" in set(_imported_roots(ast.parse("import tobac_flow_tpu.ops")))

@@ -1,5 +1,6 @@
-"""PyTorch port of the fused flow → fields → watershed path of
-``tobac_flow_tpu``, for CUDA on NVIDIA Hopper.
+"""PyTorch port of ``tobac_flow_tpu`` for CUDA on NVIDIA Hopper: the fused
+flow → fields → watershed path, and the detection chain of the ingest
+CLIs up to its label volumes.
 
 The JAX package is the reference this package is held against; this one
 imports neither it nor JAX.  Public entry points:
@@ -7,9 +8,14 @@ imports neither it nor JAX.  Public entry points:
 - :func:`tobac_flow_tpu_torch.pipeline.fused_flow_watershed`
 - :func:`tobac_flow_tpu_torch.pipeline.device_flow`
 - :func:`tobac_flow_tpu_torch.ops.watershed.watershed`
+- :func:`tobac_flow_tpu_torch.core.flow.create_flow` and
+  :class:`tobac_flow_tpu_torch.core.flow.Flow`
+- :func:`tobac_flow_tpu_torch.detect.chain.run_detection`
 - :class:`tobac_flow_tpu_torch.models.farneback.FarnebackFlow`
 """
 
+from tobac_flow_tpu_torch.core.flow import Flow, create_flow
+from tobac_flow_tpu_torch.detect.chain import DetectionOptions, run_detection
 from tobac_flow_tpu_torch.models.farneback import (
     FarnebackFlow,
     FarnebackParams,
@@ -19,6 +25,6 @@ from tobac_flow_tpu_torch.ops.watershed import watershed
 from tobac_flow_tpu_torch.pipeline import device_flow, fused_flow_watershed
 
 __all__ = [
-    "FarnebackFlow", "FarnebackParams", "device_flow", "from_jax_params",
-    "fused_flow_watershed", "watershed",
+    "DetectionOptions", "FarnebackFlow", "FarnebackParams", "Flow", "create_flow",
+    "device_flow", "from_jax_params", "fused_flow_watershed", "run_detection", "watershed",
 ]

@@ -1,0 +1,162 @@
+"""The detection chain's dense stages over whole volumes on the device
+(counterpart of ``tobac_flow_tpu/detect/fused.py``).
+
+- ``core_markers``: the combined cloud-top filter and the growth markers
+  of ``detect_cores`` (the reference's ``_core_markers_jit``).
+- ``anvil_marker_mask``: the thresholded, opened anvil-marker field
+  (``_marker_mask_jit``).
+- ``anvil_pre_watershed`` / ``anvil_post_watershed``: the watershed's
+  edge field and eroded markers, and the clean-up of its labels
+  (``_anvil_pre_jit``, ``_anvil_post_jit``).
+
+Each stage is the reference's program on the whole volume at once, built
+from the same pieces: flow-warped convolutions, the structure-offset
+morphology, the hole fill and the symmetric-border Gaussian.  The 21×21
+peak maximum runs separably, rows then columns, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from tobac_flow_tpu_torch.ops.convolve import (
+    _convolve_impl, any0, diff_func, nanmean0, structure_taps,
+)
+from tobac_flow_tpu_torch.ops.morphology import (
+    _binary_morph, _fill_holes_device, _gauss_kernel, _grey_morph, _sepconv_reflect,
+    _structure_offsets,
+)
+from tobac_flow_tpu_torch.ops.sobel import sobel_magnitude
+from tobac_flow_tpu_torch.utils.normalisation import linearise_field
+
+__all__ = ["core_markers", "anvil_marker_mask", "anvil_pre_watershed",
+           "anvil_post_watershed"]
+
+
+def _t_struct():
+    s = np.zeros((3, 3, 3), bool)
+    s[:, 1, 1] = True
+    return s
+
+
+def _s2d_structure():
+    """Spatial-only connectivity-1 structure (temporal planes cleared)."""
+    s = np.abs(np.indices((3, 3, 3)) - 1).sum(axis=0) <= 1
+    s[0] = 0
+    s[2] = 0
+    return s
+
+
+_T_TAPS = structure_taps(_t_struct())
+_S2D_OFFS = _structure_offsets(_s2d_structure(), 3)
+_S2D_TAPS = structure_taps(_s2d_structure())
+_FULL_TAPS = structure_taps(np.ones((3, 3, 3), bool))
+_B3_OFFS = _structure_offsets(np.ones((3, 3, 3), bool), 3)
+# the EDT < 5 disk, as (t, y, x) offsets
+_yy, _xx = np.mgrid[-4:5, -4:5]
+_DISK_OFFS = tuple((0, int(_yy[i, j]), int(_xx[i, j]))
+                   for i, j in zip(*np.nonzero((_yy**2 + _xx**2) < 25)))
+_ROW_MAX_OFFS = tuple((0, d, 0) for d in range(-10, 11))
+_COL_MAX_OFFS = tuple((0, 0, d) for d in range(-10, 11))
+
+
+def _spatial_gauss_kernels(sigma):
+    return ((0, None), (1, _gauss_kernel(sigma)), (2, _gauss_kernel(sigma)))
+
+
+def _opening(mask, offs):
+    return _binary_morph(_binary_morph(mask, offs, 1, 0, "erode"), offs, 1, 0, "dilate")
+
+
+def _curvature_filter(field, direction, sigma=2.0, threshold=0.0):
+    """Where the smoothed field's x and y curvatures share the requested
+    sign, hole-filled and opened."""
+    sm = _sepconv_reflect(field, _spatial_gauss_kernels(sigma))
+    x2 = torch.zeros_like(field)
+    x2[:, :, 1:-1] = sm[:, :, 2:] - 2 * sm[:, :, 1:-1] + sm[:, :, :-2]
+    y2 = torch.zeros_like(field)
+    y2[:, 1:-1] = sm[:, 2:] - 2 * sm[:, 1:-1] + sm[:, :-2]
+    if direction == "negative":
+        cond = (x2 < -threshold) & (y2 < -threshold)
+    else:
+        cond = (x2 > threshold) & (y2 > threshold)
+    filled = _fill_holes_device(cond, _S2D_OFFS, int(sum(field.shape)) + 8)
+    return _opening(filled, _S2D_OFFS)
+
+
+def _peak_filter(field, direction, sigma=0.5, min_distance=10):
+    """Within 5 px of the local extrema of the smoothed field (21×21
+    window, away from a ``min_distance`` border)."""
+    sm = _sepconv_reflect(field, _spatial_gauss_kernels(sigma))
+    if direction == "positive":
+        sm = -sm
+    mx = _grey_morph(_grey_morph(sm, _ROW_MAX_OFFS, "max"), _COL_MAX_OFFS, "max")
+    peaks = (sm >= mx) & (sm > 0.0)
+    d = int(min_distance)
+    border = torch.zeros_like(peaks)
+    border[:, d:-d, d:-d] = peaks[:, d:-d, d:-d]
+    return _binary_morph(border, _DISK_OFFS, 1, 0, "dilate")
+
+
+def _channel_filter(field, direction, fwd, bwd):
+    """Curvature or peak filter, tracked ±1 frame along the flow."""
+    either = (_curvature_filter(field, direction) | _peak_filter(field, direction))
+    return _convolve_impl(either.to(torch.int32), fwd, bwd, _T_TAPS, "nearest", 0, any0, 0)
+
+
+def _growth_rate(field, fwd, bwd, dt):
+    """Semi-Lagrangian difference per minute, averaged over the in-plane
+    cross (cubic warps)."""
+    diff = _convolve_impl(field, fwd, bwd, _T_TAPS, "cubic", math.nan, diff_func, math.nan)
+    return _convolve_impl(diff / dt, fwd, bwd, _S2D_TAPS, "cubic", math.nan, nanmean0,
+                          math.nan)
+
+
+def core_markers(bt, wvd, swd, fwd, bwd, dt, wvd_threshold, bt_threshold, use_wvd):
+    """The growth-marker mask of ``detect_cores``; ``dt`` is (T, 1, 1)
+    minutes."""
+    combined = _channel_filter(bt, "positive", fwd, bwd) != 0
+    if use_wvd:
+        combined = combined | (_channel_filter(wvd, "negative", fwd, bwd) != 0)
+    combined = _opening(
+        _fill_holes_device(combined, _S2D_OFFS, int(sum(bt.shape)) + 8), _S2D_OFFS
+    )
+    combined_filter = combined.to(torch.float32) * (1.0 - linearise_field(swd, 2.5, 7.5))
+    markers = (_growth_rate(-bt, fwd, bwd, dt) * combined_filter) > bt_threshold
+    if use_wvd:
+        markers = markers | (
+            (_growth_rate(wvd, fwd, bwd, dt) * combined_filter) > wvd_threshold)
+    return _opening(markers, _S2D_OFFS)
+
+
+def anvil_marker_mask(field, threshold):
+    """The anvil-marker field thresholded and opened."""
+    return _opening(field >= threshold, _S2D_OFFS)
+
+
+def anvil_pre_watershed(field, markers, fwd, bwd, lower, upper, erode_distance):
+    """The anvil watershed's inputs: the uphill-Sobel edge field of the
+    linearised field (+1 where positive, less the field, +inf at NaN) and
+    the markers eroded in-plane, with -1 over the eroded watershed mask
+    (where the linearised field is ≤ 0 or NaN)."""
+    f = linearise_field(field, lower, upper)
+    eroded = markers * _binary_morph(markers != 0, _S2D_OFFS, 1, 0, "erode").to(torch.int32)
+    wh_nan = torch.isnan(f)
+    mask = _binary_morph((f <= 0) | wh_nan, _B3_OFFS, int(erode_distance), 1, "erode")
+    eroded = torch.where(mask | wh_nan, -1, eroded)
+    edges = _convolve_impl(f, fwd, bwd, _FULL_TAPS, "cubic", math.nan,
+                           lambda taps: sobel_magnitude(taps, taps[13], "uphill"), math.nan)
+    edges = edges + (edges > 0).to(edges.dtype)
+    edges = edges - f
+    return torch.where(wh_nan, math.inf, edges), eroded
+
+
+def anvil_post_watershed(labels, markers):
+    """Negative labels cleared, labels kept where their in-plane opening
+    holds, markers written back over them."""
+    labels = labels.clamp(min=0)
+    labels = labels * _opening(labels != 0, _S2D_OFFS).to(labels.dtype)
+    return torch.where(markers > 0, markers.to(labels.dtype), labels)

@@ -1,9 +1,16 @@
 """Interpolation weights and integer-shift taps (counterpart of
 ``tobac_flow_tpu/ops/warp.py``).
 
-Only what the fused flow → fields → watershed path needs: the linear and
-cubic (cv2 INTER_CUBIC, A = -0.75) tap weights and the constant-fill shift
-of a frame to a set of integer offsets.
+The linear and cubic (cv2 INTER_CUBIC, A = -0.75) tap weights and the
+constant-fill shift of a frame to a set of integer offsets.
+
+The reference's compiled CPU programs contract a product that feeds an add
+into one fused multiply-add (a product that passes through a select first
+is not contracted).  ``fma`` reproduces that rounding where the port must
+match the reference bit for bit: the product of two float32 numbers is
+exact in float64, so one float64 add and one rounding to float32 give the
+fused result (a double rounding can differ from it only when the float64
+sum falls exactly halfway between two float32 numbers).
 """
 
 from __future__ import annotations
@@ -12,7 +19,7 @@ import math
 
 import torch
 
-__all__ = ["shift", "shift_axis", "shift_plane"]
+__all__ = ["fma", "shift", "shift_axis", "shift_plane"]
 
 
 def _linear_weights(f):
@@ -20,19 +27,36 @@ def _linear_weights(f):
     return [1.0 - f, f]
 
 
+def fma(a, b, c):
+    """float32 ``a * b + c`` rounded once (see the module docstring); any
+    argument may be a Python number, taken as its float32 value."""
+    def wide(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(torch.float64)
+        return float(torch.tensor(x, dtype=torch.float32))
+
+    a, b, c = wide(a), wide(b), wide(c)
+    return (a * b + c).to(torch.float32)
+
+
 def _cubic_weights(f):
-    """4-tap cubic-convolution weights (cv2 INTER_CUBIC, A = -0.75)."""
+    """4-tap cubic-convolution weights (cv2 INTER_CUBIC, A = -0.75), rounded
+    as the reference's compiled programs round them:
+    each Horner step ``p * x + c`` is one fused multiply-add, and the outer
+    taps' ``(f + 1) - 5`` and ``(2 - f) - 5`` are folded to ``f - 4`` and
+    ``-3 - f`` before rounding."""
     a = -0.75
-    # tap distances: |x| for taps at -1, 0, 1, 2 are 1+f, f, 1-f, 2-f
     x0 = f + 1.0
-    x1 = f
     x2 = 1.0 - f
     x3 = 2.0 - f
-    w0 = a * (((x0 - 5.0) * x0 + 8.0) * x0 - 4.0)
-    w1 = ((a + 2.0) * x1 - (a + 3.0)) * x1 * x1 + 1.0
-    w2 = ((a + 2.0) * x2 - (a + 3.0)) * x2 * x2 + 1.0
-    w3 = a * (((x3 - 5.0) * x3 + 8.0) * x3 - 4.0)
-    return [w0, w1, w2, w3]
+
+    def outer(x, x_minus_5):  # a * (((x - 5) * x + 8) * x - 4)
+        return a * fma(fma(x_minus_5, x, 8.0), x, -4.0)
+
+    def inner(x):  # ((a + 2) * x - (a + 3)) * x * x + 1
+        return fma(fma(a + 2.0, x, -(a + 3.0)) * x, x, 1.0)
+
+    return [outer(x0, f - 4.0), inner(f), inner(x2), outer(x3, -3.0 - f)]
 
 
 def shift_axis(a, s, axis, fill):

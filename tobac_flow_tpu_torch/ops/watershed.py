@@ -48,7 +48,13 @@ _SCAN_SWEEPS = 4  # in-plane kernel sweeps of each frame step of a scan round
 
 
 def connectivity_structure(connectivity):
-    """(3, 3, 3) boolean neighbourhood of an int connectivity (1..3)."""
+    """(3, 3, 3) boolean neighbourhood of an int connectivity (1..3), or an
+    explicit (3, 3, 3) structuring array passed through."""
+    if isinstance(connectivity, (np.ndarray, torch.Tensor)):
+        s = np.asarray(connectivity).astype(bool)
+        if s.shape != (3, 3, 3):
+            raise ValueError("connectivity structure must have shape (3,3,3)")
+        return s
     grid = np.abs(np.indices((3, 3, 3)) - 1).sum(axis=0)
     return grid <= int(connectivity)
 
@@ -431,7 +437,7 @@ def watershed(forward_flow, backward_flow, field, markers, mask=None,
     field : (T, H, W) topography to flood (NaN is a +inf barrier).
     markers : (T, H, W) int seeds; negative markers flood as barriers.
     mask : optional bool tensor; False pixels are never flooded.
-    connectivity : 1..3.
+    connectivity : 1..3, or an explicit (3, 3, 3) structure.
     max_iters : Jacobi round cap (default T + H + W + 32).
     multigrid : run the 4x coarse V-cycle first (when H, W >= 32).
     stats : optional dict that receives the round counts.

@@ -17,13 +17,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from tobac_flow_tpu_torch.core.flow import smooth_flow_step
 from tobac_flow_tpu_torch.device import resolve_device
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
+from tobac_flow_tpu_torch.models.variational import variational_refine
 from tobac_flow_tpu_torch.ops.banded import warp_banded_exact, warp_banded_exact_multi
+from tobac_flow_tpu_torch.ops.sobel import sobel_magnitude
 from tobac_flow_tpu_torch.ops.warp import shift_plane
 from tobac_flow_tpu_torch.ops.watershed import watershed
 
-__all__ = ["device_flow", "fused_flow_watershed"]
+__all__ = ["device_flow", "fused_flow_watershed", "pair_flows"]
 
 
 def _normalise_pair(prev, nxt):
@@ -49,25 +52,39 @@ _FLOW_CLIP = 20.0  # px, as the reference (tobac-flow's flow.py clips to ±20)
 _WS_ITERS = 128  # the fused path's Jacobi round cap
 
 
-def device_flow(data, params: FarnebackParams | None = None, vr_steps=0,
-                smoothing_passes=0, device=None):
-    """Forward/backward Farneback flow of a (T, H, W) stack: (T, H, W, 2)
-    each, channel 0 = x, on ``device`` (see :func:`resolve_device`).  All
-    2(T-1) pair solves run as one batch.  The boundary frames take the
-    negated opposite flow; both are clipped to ±20 px."""
-    if vr_steps > 0 or smoothing_passes > 0:
-        raise NotImplementedError(
-            "variational refinement and flow smoothing (the CLI-default flow) "
-            "are not ported yet: ROADMAP.md, 'Modules to port', item 3"
-        )
+def pair_flows(data, model, vr_steps=0, smoothing_passes=0, interp_method="linear",
+               device=None):
+    """Forward/backward flow of a (T, H, W) stack, unclipped, on ``device``
+    (see :func:`resolve_device`): ``model`` (a pair-flow module) runs all
+    2(T-1) pair solves as one batch; each pair is then refined
+    (``vr_steps``) and smoothed (``smoothing_passes`` with
+    ``interp_method``), as the reference does per pair.  The boundary
+    frames take the negated opposite flow."""
     data = torch.as_tensor(data).to(resolve_device(device))
+    if data.shape[0] < 2:
+        raise ValueError("Need at least two frames to compute flow")
     t = data.shape[0]
     p8, n8 = _normalise_pair(data[:-1], data[1:])
-    model = FarnebackFlow(params).to(data.device)
-    flows = model(torch.cat([p8, n8]), torch.cat([n8, p8]))
+    first, second = torch.cat([p8, n8]), torch.cat([n8, p8])
+    flows = model.to(data.device)(first, second)
+    if vr_steps > 0:
+        flows = variational_refine(first, second, flows, steps=vr_steps)
     fwd_pairs, bwd_pairs = flows[: t - 1], flows[t - 1:]
+    for _ in range(smoothing_passes):
+        fwd_pairs, bwd_pairs = smooth_flow_step(fwd_pairs, bwd_pairs, method=interp_method)
     fwd = torch.cat([fwd_pairs, -bwd_pairs[-1:]])
     bwd = torch.cat([-fwd_pairs[:1], bwd_pairs])
+    return fwd, bwd
+
+
+def device_flow(data, params: FarnebackParams | None = None, vr_steps=0,
+                smoothing_passes=0, interp_method="linear", device=None):
+    """Forward/backward Farneback flow of a (T, H, W) stack: (T, H, W, 2)
+    each, channel 0 = x, on ``device`` (see :func:`resolve_device`), with
+    ``vr_steps`` of variational refinement and ``smoothing_passes`` of
+    smoothing (see :func:`pair_flows`); both are clipped to ±20 px."""
+    fwd, bwd = pair_flows(data, FarnebackFlow(params), vr_steps, smoothing_passes,
+                          interp_method, device)
     return fwd.clamp(-_FLOW_CLIP, _FLOW_CLIP), bwd.clamp(-_FLOW_CLIP, _FLOW_CLIP)
 
 
@@ -88,37 +105,18 @@ def _flow_diff(data, fwd, bwd, radius):
     return total / torch.clamp(f_ok.to(torch.float32) + b_ok.to(torch.float32), min=1.0)
 
 
-_SOBEL_BASE = np.multiply.outer(
-    np.array([1, 2, 1]), np.multiply.outer(np.array([1, 2, 1]), np.array([-1, 0, 1]))
-)
-_SOBEL_WX = _SOBEL_BASE
-_SOBEL_WY = _SOBEL_BASE.transpose(0, 2, 1)
-_SOBEL_WT = _SOBEL_BASE.transpose(2, 0, 1)
-
-
 def _flow_sobel_uphill(data, fwd, bwd, radius):
     """27-tap uphill Sobel magnitude: the previous and next planes are read
-    at ``p + flow(p) + o`` through the exact warp, the current plane at
-    ``p + o``, for the 9 in-plane offsets o.  Terms accumulate in the
-    reference's order; zero-weight terms add exactly 0 and are skipped."""
+    at ``p + flow(p) + o`` through the exact linear warp, the current plane
+    at ``p + o``, for the 9 in-plane offsets o."""
     offsets = [(ox, oy) for oy in (-1, 0, 1) for ox in (-1, 0, 1)]
     prev, nxt = _neighbour_frames(data)
-    planes = (
+    taps = torch.cat([
         warp_banded_exact_multi(prev, bwd, offsets, radius),
         shift_plane(data, offsets, math.nan),
         warp_banded_exact_multi(nxt, fwd, offsets, radius),
-    )
-    grads = [torch.zeros_like(data) for _ in range(3)]
-    for pi, taps in enumerate(planes):
-        for oi, (ox, oy) in enumerate(offsets):
-            rect = torch.fmax(taps[oi] - data, torch.zeros((), device=data.device))
-            rect = torch.where(torch.isnan(rect), 0.0, rect)
-            for g, wts in zip(grads, (_SOBEL_WX, _SOBEL_WY, _SOBEL_WT)):
-                wgt = float(wts[pi, oy + 1, ox + 1])
-                if wgt != 0.0:
-                    g.add_(wgt * rect)
-    gx, gy, gt = grads
-    return torch.sqrt(gx * gx + gy * gy + gt * gt)
+    ])
+    return sobel_magnitude(taps, data, "uphill")
 
 
 def _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius):
