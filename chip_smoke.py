@@ -7,9 +7,10 @@
    from source and prints ptxas's registers, spills and shared memory.
 3. Holds the kernel against its plain PyTorch version on the card
    (bit-equal is the tolerance) at every shape class either path launches
-   it with (``SHAPE_CLASSES``) and a ragged (3, 230, 257), for K = 1, 4, 8
-   and the 4 and 8 in-plane taps; then times each shape class (kernel and
-   plain version) and computes its bound.
+   it with (``SHAPE_CLASSES``, and ``PROFILED_SHAPES`` of the chain's
+   profiled run) and a ragged (3, 230, 257), for K = 1, 4, 8 and the 4 and
+   8 in-plane taps; then times each shape class of ``SHAPE_CLASSES``
+   (kernel and plain version) and computes its bound.
 4. Runs the fused flow → fields → watershed slice on ``make_scene(8, 160,
    224)`` on the GPU and on the CPU (plain versions): flows within the CPU
    tests' tolerance, labels at IoU ≥ 0.99.
@@ -17,11 +18,12 @@
    markers, once to warm up and then two timed runs, each with the
    kernel's launch counts reset just before it; checks the outputs, and
    that the runs give the same labels.
-6. Runs the full slice once more under ``torch.profiler``: for each stage
-   (the pipeline's ``stage.*`` ranges) the device operations started in it,
-   the union of their intervals and the stage's idle share; the device
-   ops with the most time, by name; and the kernel's own launches and
-   device time in the run.
+6. Runs the full slice once more under ``torch.profiler``, recording device
+   activity alone: for each stage (its span on the host, which the
+   ``stage.*`` profiler range also covers) the device operations started
+   in it, the union of their intervals and the stage's idle share; the
+   device ops with the most time, by name; and the kernel's own launches
+   and device time in the run.
 7. The detection chain (``detect.chain.run_detection``: the CLI-default
    flow, cores, anvil markers, thick anvils, their relabelling, thin
    anvils) on ``tools/parity_detect.make_multistorm_scene``.  On (9, 64,
@@ -29,12 +31,12 @@
    tolerance inside the storm mask on every frame the CPU reproduces from
    the card's Farneback flows (refinement is chaotic where the flow is
    noise), and the labels of every stage on the card identical to the
-   CPU's given the same flows.  On (6, 1024, 1536), the bench frame at its
-   full width with the depth cut to 6 frames: a warm-up run and two timed
-   runs, each stage's seconds and objects, the peak memory and the
-   kernel's launches by shape; every stage finds objects and the runs give
-   equal labels.  Then one profiled run, split by the chain's stages as in
-   6 (by their host spans, the profiler recording device activity alone).
+   CPU's given the same flows.  Then one profiled run on (6, 1024, 1536),
+   split by the chain's stages as in 6, which also warms the chain up.
+   Then two timed runs on (8, 1024, 1536), the bench frame at its full
+   width with the depth cut to 8 frames: each stage's seconds and objects,
+   the peak memory and the kernel's launches by shape; every stage finds
+   objects and the runs give equal labels.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -43,7 +45,8 @@ own, that it finds them cold in the card's 50 MB L2 cache; a launch that
 fits in the L2 is also timed on one copy of its inputs (L2 warm).  The
 lines before the last are the per-shape table, the profile, one JSON
 object describing each kernel and the ``nvidia-smi`` name and power limit;
-the last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
+the last line is ``{"ok": true, "device": {...}}``.  Each log line starts
+with the seconds since the script started.  Any failure raises and
 exits non-zero.  It imports nothing of JAX: the scenes come from
 ``bench.make_scene``, ``bench.make_markers`` and
 ``tools/parity_detect.make_multistorm_scene``, which need only numpy and
@@ -52,6 +55,7 @@ scipy.
 
 from __future__ import annotations
 
+import bisect
 import gc
 import json
 import math
@@ -77,23 +81,29 @@ FULL = (24, 1024, 1536)
 COARSE = (24, 256, 384)  # the watershed's 4x coarse grid of FULL
 RUNS = 2
 CHAIN_SMALL = (9, 64, 96)
-# the chain at the bench frame's full width with its depth cut to 6 frames:
-# on an H100 80GB HBM3 (700 W) a run took 280-293 s at 24 frames and
-# 138-143 s at 8, and the profiled 8-frame run with its analysis 720 s,
-# too long for a warm-up, two timed runs and a profiled run in this script
-CHAIN_FULL = (6,) + FULL[1:]
+# the chain's timed runs at the bench frame's full width with its depth cut
+# to 8 frames, the fewest at which every cell of the scene lives through
+# every stage (at 8 and 24 frames the stages find 24, 24, 24, 23 and 23
+# objects; at 6, 15, 5, 5, 5 and 5).  On an H100 80GB HBM3 (700 W) a run
+# took 280-293 s at 24 frames and 125-143 s at 8.  The profiled run is cut
+# to 6 frames: the profiler's processing grows with the device ops, 4.6
+# million at 6 frames (330-350 s with the run) and 6.2 million at 8.
+CHAIN_FULL = (8,) + FULL[1:]
+CHAIN_PROFILED = (6,) + FULL[1:]
 CHAIN_RUNS = 2
 CHAIN_LABELS = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
 CHAIN_COARSE = (CHAIN_FULL[0],) + COARSE[1:]
-# (shape, K) of every launch of the bench slice and the chain: the scan
-# rounds' per-frame steps (K = 4), the in-plane part of each Jacobi round's
-# full sweep (K = 1) and its 8 kernel sweeps (K = 8), on the fine and the
-# coarse grid
+# (shape, K) of every launch of the bench slice and the chain's timed runs:
+# the scan rounds' per-frame steps (K = 4), the in-plane part of each Jacobi
+# round's full sweep (K = 1) and its 8 kernel sweeps (K = 8), on the fine
+# and the coarse grid
 SHAPE_CLASSES = (
     ((1,) + FULL[1:], 4), ((1,) + COARSE[1:], 4),
     (FULL, 1), (FULL, 8), (COARSE, 1), (COARSE, 8),
     (CHAIN_FULL, 1), (CHAIN_FULL, 8), (CHAIN_COARSE, 1), (CHAIN_COARSE, 8),
 )
+# the volumes the profiled chain run launches the kernel with besides
+PROFILED_SHAPES = (CHAIN_PROFILED, (CHAIN_PROFILED[0],) + COARSE[1:])
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, the same source
 # compares, selects and integer adds issue at 64 lanes per SM and clock on
@@ -107,8 +117,7 @@ OUT_BYTES_PER_PIXEL = 12  # claim, claim2, meta
 # lexicographic compare, the hop tick, the three selects); the candidate
 # build, once per cell and sweep, is not counted
 OPS_PER_TAP = 19
-STAGES = ("stage.flow", "stage.fields", "stage.watershed")
-CHAIN_RANGES = tuple(f"stage.{name}" for name in CHAIN_STAGES)
+STAGES = ("flow", "fields", "watershed")
 TOP_OPS = 8  # device ops by total time printed per profile
 KERNEL_SOURCE = "tobac_flow_tpu_torch/csrc/ws_sweeps.cu"
 KERNEL_REPLACES = "tobac_flow_tpu/ops/ws_pallas.py:151"
@@ -119,8 +128,11 @@ IN_PLANE = {
 IN_PLANE[3] = IN_PLANE[2]  # connectivity 3 adds only temporal taps
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def card():
@@ -233,7 +245,8 @@ def check_kernel(device):
     main path and a ragged shape, K = 1, 4, 8, 4 and 8 taps (and
     connectivity 3, whose in-plane taps are connectivity 2's, at the ragged
     and the bench shape).  Returns the worst |kernel - plain|."""
-    shapes = sorted({s for s, _ in SHAPE_CLASSES} | {(3, 230, 257)}, key=np.prod)
+    shapes = sorted({s for s, _ in SHAPE_CLASSES} | set(PROFILED_SHAPES) | {(3, 230, 257)},
+                    key=np.prod)
     worst = 0.0
     for shape in shapes:
         conns = (1, 2, 3) if shape in ((3, 230, 257), FULL) else (1, 2)
@@ -299,17 +312,17 @@ def union_ms(intervals):
     return total / 1e3
 
 
-def profile_run(run, stages, card_line, what, host_spans=False):
-    """One call of ``run`` under torch.profiler.  For each stage range,
-    the device operations (kernels, copies, fills) that start in it, the
-    union of their intervals and the share of the stage's wall time the
-    device spent idle; the device ops with the most time, by name; and the
-    sweep kernel's launches and device ms.  The stage ranges are the
-    ``record_function`` ranges of the profiler's CPU activity or, with
-    ``host_spans``, the ``{stage}_span_ns`` Unix-clock spans in the dict
-    ``run`` returns, with the profiler recording device activity alone
-    (the profiler's post-processing then handles a third of the events).
-    Returns (the sweep kernel's device ms in the run, its launches)."""
+def profile_run(run, stages, card_line, what):
+    """One call of ``run`` under torch.profiler, recording device activity
+    alone.  ``run`` returns the ``stats`` dict of the path it drives, whose
+    ``{stage}_span_ns`` are the stages' spans on the host's Unix clock, the
+    profiler's.  For each stage, the device operations (kernels, copies,
+    fills) that start in its span, the union of their intervals and the
+    share of the stage's wall time the device spent idle; the device ops
+    with the most time, by name; and the sweep kernel's launches and
+    device ms.  Raises if a stage saw no device op or the stages together
+    saw under 99 % of the run's (the two clocks would disagree).  Returns
+    (the sweep kernel's device ms in the run, its launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -317,37 +330,36 @@ def profile_run(run, stages, card_line, what, host_spans=False):
     torch.cuda.synchronize()
     ws_sweeps.spatial_sweeps.launches = 0
     t0 = time.perf_counter()
-    activities = [ProfilerActivity.CUDA]
-    if not host_spans:
-        activities.append(ProfilerActivity.CPU)
-    with profile(activities=activities) as prof:
-        returned = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stats = run()
         torch.cuda.synchronize()
+        t_run = time.perf_counter()
+    t_stop = time.perf_counter()
     counted = ws_sweeps.spatial_sweeps.launches
     # the raw events (µs), without building the profiler's event tree
-    ranges, ops = {}, []
+    ops = []
     for e in prof.profiler.kineto_results.events():
-        name, device = e.name(), e.device_type()
-        start = e.start_ns() / 1e3
-        span = (start, start + e.duration_ns() / 1e3)
-        if name in stages:
-            if device == DeviceType.CPU:
-                ranges[name] = span
-        elif device == DeviceType.CUDA and not e.is_user_annotation():
-            ops.append((*span, name))
-    if host_spans:
-        ranges = {name: tuple(t / 1e3 for t in returned[name[len("stage."):] + "_span_ns"])
-                  for name in stages}
-    if set(ranges) != set(stages) or not ops:
-        raise AssertionError(f"profile: stage ranges {sorted(ranges)}, {len(ops)} device ops")
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            start = e.start_ns() / 1e3
+            ops.append((start, start + e.duration_ns() / 1e3, e.name()))
+    ops.sort()
+    starts = [s for s, _, _ in ops]
+    in_stages = 0
     for name in stages:
-        lo, hi = ranges[name]
-        mine = [(s, e) for s, e, _ in ops if lo <= s <= hi]
-        busy = union_ms(mine)
+        lo, hi = (t / 1e3 for t in stats[f"{name}_span_ns"])
+        mine = ops[bisect.bisect_left(starts, lo):bisect.bisect_right(starts, hi)]
+        if not mine:
+            raise AssertionError(f"profile of {what}: no device op started inside the host "
+                                 f"span of stage.{name}")
+        in_stages += len(mine)
+        busy = union_ms([(s, e) for s, e, _ in mine])
         wall = (hi - lo) / 1e3
-        log(f"profile of {what}, {name}: wall {wall / 1e3:.3f} s, device busy "
+        log(f"profile of {what}, stage.{name}: wall {wall / 1e3:.3f} s, device busy "
             f"{busy / 1e3:.3f} s, {len(mine)} device ops, idle "
             f"{100 * (1 - busy / wall):.1f} % [{card_line}]")
+    if in_stages < 0.99 * len(ops):
+        raise AssertionError(f"profile of {what}: the stages' host spans hold {in_stages} of "
+                             f"the run's {len(ops)} device ops")
     by_name = {}
     for s, e, n in ops:
         total, count = by_name.get(n, (0.0, 0))
@@ -360,9 +372,10 @@ def profile_run(run, stages, card_line, what, host_spans=False):
     if len(sweeps) != counted:
         raise AssertionError(f"profile: {len(sweeps)} sweep kernels ran, the wrapper "
                              f"counted {counted} launches")
-    log(f"profile of {what}: {len(ops)} device ops in the run; the sweep kernel "
-        f"{len(sweeps)} launches, {ms:.3f} ms of device time; profiled run and its "
-        f"analysis {time.perf_counter() - t0:.1f} s [{card_line}]")
+    log(f"profile of {what}: {len(ops)} device ops in the run, {in_stages} inside the "
+        f"stages; the sweep kernel {len(sweeps)} launches, {ms:.3f} ms of device time; "
+        f"profiled run {t_run - t0:.1f} s, the profiler's stop {t_stop - t_run:.1f} s, "
+        f"the analysis {time.perf_counter() - t_stop:.1f} s [{card_line}]")
     return ms, len(sweeps)
 
 
@@ -455,21 +468,29 @@ def check_chain_small(device, card_line):
         f"stage given the same flows; objects {counts}")
 
 
+def chain_fields(shape, device):
+    t0 = time.perf_counter()
+    bt, wvd, swd = make_multistorm_scene(*shape)
+    log(f"made the chain's scene {shape} on the host in {time.perf_counter() - t0:.1f} s")
+    return [torch.from_numpy(a).to(device) for a in (bt, wvd, swd)], chain_times(shape[0])
+
+
 def run_chain_full(device, card_line):
-    """The chain at CHAIN_FULL: a warm-up run, CHAIN_RUNS timed runs (the
-    kernel's counts reset just before each and read just after), then a
-    profiled run.  Returns (launches per run, launches by shape, profiled
-    sweep ms, profiled sweep launches)."""
-    t0 = time.perf_counter()
-    bt, wvd, swd = make_multistorm_scene(*CHAIN_FULL)
-    times = chain_times(CHAIN_FULL[0])
-    log(f"made the chain's scene {CHAIN_FULL} on the host in {time.perf_counter() - t0:.1f} s")
-    fields = [torch.from_numpy(a).to(device) for a in (bt, wvd, swd)]
-    del bt, wvd, swd
-    t0 = time.perf_counter()
-    run_detection(*fields, times)
-    torch.cuda.synchronize()
-    log(f"chain {CHAIN_FULL} warm-up run {time.perf_counter() - t0:.3f} s [{card_line}]")
+    """The chain's profiled run at CHAIN_PROFILED, which also warms it up,
+    then CHAIN_RUNS timed runs at CHAIN_FULL (the kernel's counts reset
+    just before each and read just after).  Returns (launches per run,
+    launches by shape, profiled sweep ms, profiled sweep launches)."""
+    fields, times = chain_fields(CHAIN_PROFILED, device)
+
+    def profiled_run():
+        stats = {}
+        run_detection(*fields, times, stats=stats)
+        return stats
+
+    profiled = profile_run(profiled_run, CHAIN_STAGES, card_line,
+                           f"the detection chain {CHAIN_PROFILED}")
+    del fields
+    fields, times = chain_fields(CHAIN_FULL, device)
     sweeps = ws_sweeps.spatial_sweeps
     first = None
     for run in range(1, CHAIN_RUNS + 1):
@@ -508,13 +529,6 @@ def run_chain_full(device, card_line):
             f"{resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
         del out, labels
     log("chain: the runs give equal labels at every stage")
-    def profiled_run():
-        stats = {}
-        run_detection(*fields, times, stats=stats)
-        return stats
-
-    profiled = profile_run(profiled_run, CHAIN_RANGES, card_line, "the detection chain",
-                           host_spans=True)
     return launches, by_shape, *profiled
 
 
@@ -607,9 +621,14 @@ def main():
     unknown = set(by_shape) - set(per_shape)
     if unknown:
         raise AssertionError(f"the slice launched the kernel at untimed shapes {sorted(unknown)}")
-    profiled_ms, profiled_launches = profile_run(
-        lambda: fused_flow_watershed(bt_dev, 5.0, markers=markers, stats={}), STAGES,
-        card_line, "the bench slice")
+
+    def profiled_slice():
+        stats = {}
+        fused_flow_watershed(bt_dev, 5.0, markers=markers, stats=stats)
+        return stats
+
+    profiled_ms, profiled_launches = profile_run(profiled_slice, STAGES, card_line,
+                                                 "the bench slice")
     del bt_dev, first
 
     # the detection chain: card against CPU on a small scene, then the full
@@ -653,8 +672,12 @@ def main():
         "plain_ms_by_path": {p: per_run("plain_ms", c) for p, c in paths.items()},
         "bound_ms_by_path": {p: per_run("bound_ms", c) for p, c in paths.items()},
         "warm_l2_ms": both("warm_l2_ms"),
-        "profiled_ms": profiled_ms + chain_profiled_ms,
-        "profiled_launches": profiled_launches + chain_profiled_launches,
+        "profiled_ms_by_path": {"fused_flow_watershed": profiled_ms,
+                                "run_detection": chain_profiled_ms},
+        "profiled_launches_by_path": {"fused_flow_watershed": profiled_launches,
+                                      "run_detection": chain_profiled_launches},
+        "profiled_shapes": {"fused_flow_watershed": "x".join(map(str, FULL)),
+                            "run_detection": "x".join(map(str, CHAIN_PROFILED))},
         "ms_by_shape": {k: r["ms"] for k, r in per_shape.items()},
         "warm_l2_ms_by_shape": {k: r["warm_l2_ms"] for k, r in per_shape.items()},
         "plain_ms_by_shape": {k: r["plain_ms"] for k, r in per_shape.items()},

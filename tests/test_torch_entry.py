@@ -14,7 +14,9 @@ torch.set_num_threads(1)
 from tobac_flow_tpu_torch import (  # noqa: E402
     Flow, create_flow, device_flow, fused_flow_watershed, run_detection, watershed,
 )
-from tobac_flow_tpu_torch.device import resolve_device  # noqa: E402
+import time  # noqa: E402
+
+from tobac_flow_tpu_torch.device import resolve_device, stage  # noqa: E402
 
 T, H, W = 3, 12, 16
 
@@ -58,3 +60,17 @@ def test_cpu_when_asked():
     assert torch.equal(labels, same)
     assert set(np.unique(labels.numpy())) == {1, 2}
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_stage_records_seconds_and_span():
+    """A stage records its seconds and its span on the Unix clock, which the
+    profiles of ``chip_smoke.py`` split by."""
+    stats = {}
+    before = time.time_ns()
+    with stage("work", stats, torch.device("cpu")):
+        time.sleep(0.01)
+    after = time.time_ns()
+    assert set(stats) == {"work_s", "work_span_ns"}
+    lo, hi = stats["work_span_ns"]
+    assert before <= lo < hi <= after and hi - lo >= 10_000_000
+    assert 0.01 <= stats["work_s"] <= (after - before) / 1e9

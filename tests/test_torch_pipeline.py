@@ -93,5 +93,6 @@ def test_fused_flow_watershed_against_jax(scene):
     assert iou >= 0.99 and agree >= 0.99, (iou, agree)
     assert set(np.unique(out[out > 0])) == set(range(1, scene["n"] + 1))
     assert np.isfinite(fwd.numpy()).all()
-    for key in ("flow_s", "fields_s", "watershed_s", "jacobi_rounds"):
+    for key in ("flow_s", "fields_s", "watershed_s", "jacobi_rounds", "flow_span_ns",
+                "fields_span_ns", "watershed_span_ns"):
         assert key in stats

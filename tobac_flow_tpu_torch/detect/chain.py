@@ -10,16 +10,13 @@ Each stage runs inside a profiler range (``stage.flow``,
 
 from __future__ import annotations
 
-import time
-
 import torch
-from torch.profiler import record_function
 
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
 from tobac_flow_tpu_torch.detect.detection import (
     detect_anvils, detect_cores, get_anvil_markers, relabel_anvils,
 )
-from tobac_flow_tpu_torch.device import resolve_device
+from tobac_flow_tpu_torch.device import resolve_device, stage as timed_stage
 
 __all__ = ["DetectionOptions", "run_detection", "STAGES"]
 
@@ -63,14 +60,8 @@ def run_detection(bt, wvd, swd, times, opts: DetectionOptions | None = None,
     out = {}
 
     def stage(name, fn):
-        t0, start_ns = time.perf_counter(), time.time_ns()
-        with record_function(f"stage.{name}"):
+        with timed_stage(name, stats, dev):
             result = fn()
-            if stats is not None:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                stats[f"{name}_s"] = time.perf_counter() - t0
-                stats[f"{name}_span_ns"] = (start_ns, time.time_ns())
         if stats is not None and name != "flow":
             stats[f"{name}_n"] = int(result.max()) if result.numel() else 0
         return result

@@ -11,14 +11,12 @@ volumes are batch dimensions; nothing is mapped frame by frame.
 from __future__ import annotations
 
 import math
-import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from tobac_flow_tpu_torch.core.flow import smooth_flow_step
-from tobac_flow_tpu_torch.device import resolve_device
+from tobac_flow_tpu_torch.device import resolve_device, stage
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
 from tobac_flow_tpu_torch.models.variational import variational_refine
 from tobac_flow_tpu_torch.ops.banded import warp_banded_exact, warp_banded_exact_multi
@@ -138,25 +136,12 @@ def adaptive_band_radius(fwd, bwd):
     return int(min(_FLOW_CLIP, max(2, int(np.ceil(m)))))
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _fields_stage(bt, dt_minutes, params=None, stats=None):
-    t0 = time.perf_counter()
-    with record_function("stage.flow"):
+    with stage("flow", stats, bt.device):
         fwd, bwd = device_flow(bt, params, device=bt.device)
-        if stats is not None:
-            _sync(bt.device)
-            stats["flow_s"] = time.perf_counter() - t0
     radius = adaptive_band_radius(fwd, bwd)
-    t0 = time.perf_counter()
-    with record_function("stage.fields"):
+    with stage("fields", stats, bt.device):
         growth, field, edges = _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius)
-        if stats is not None:
-            _sync(bt.device)
-            stats["fields_s"] = time.perf_counter() - t0
     return fwd, bwd, growth, field, edges
 
 
@@ -168,9 +153,10 @@ def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
 
     ``markers`` (int32, 0 = unlabelled) seeds the watershed with competing
     basins; ``None`` seeds one label from the core threshold.  ``stats``,
-    when a dict, receives the seconds of each stage (the device is
-    synchronised at each stage boundary) and the watershed's round counts.
-    Each stage runs inside a profiler range, ``stage.flow``,
+    when a dict, receives each stage's seconds (the device is synchronised
+    at each stage boundary) and Unix-clock span (see
+    :func:`~tobac_flow_tpu_torch.device.stage`) and the watershed's round
+    counts.  Each stage runs inside a profiler range, ``stage.flow``,
     ``stage.fields`` and ``stage.watershed``.
     """
     dev = resolve_device(device)
@@ -181,11 +167,7 @@ def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
     else:
         markers = torch.as_tensor(markers).to(dev, torch.int32)
     mask = field > 0.05
-    t0 = time.perf_counter()
-    with record_function("stage.watershed"):
+    with stage("watershed", stats, dev):
         labels = watershed(fwd, bwd, edges, markers, mask=mask, max_iters=_WS_ITERS,
                            stats=stats, device=dev)
-        if stats is not None:
-            _sync(bt.device)
-            stats["watershed_s"] = time.perf_counter() - t0
     return fwd, growth, edges, labels
