@@ -11,8 +11,10 @@ import scipy.ndimage as ndi
 import torch
 
 from bench import make_markers, make_scene
-from chip_smoke import IN_PLANE, sweep_inputs
+from chip_smoke import IN_PLANE, compare_datasets, sweep_inputs
+from tobac_flow_tpu_torch.cli.common import DetectionOptions, prepare_output
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
+from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
 from tobac_flow_tpu_torch.detect.chain import run_detection
 from tobac_flow_tpu_torch.ops import ws_sweeps
 from tobac_flow_tpu_torch.ops.ccl import flat_label
@@ -139,3 +141,31 @@ def test_chain_on_card_equals_cpu(cuda):
     for name in ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label"):
         assert gpu[name].device.type == "cuda" and int(cpu[name].max()) > 0, name
         assert torch.equal(gpu[name].cpu(), cpu[name]), name
+
+
+def test_output_stages_on_card_equal_cpu(cuda):
+    """The output stages (schema, label, spatial and field properties) on
+    the card and on the CPU, given the same labels (the chain's on the
+    card, with a NaN patch in WVD): the same dataset, float means and stds
+    within the CPU tests' tolerance."""
+    t, h, w = 9, 64, 96
+    bt, wvd, swd = make_multistorm_scene(t, h, w)
+    wvd[3:6, 20:26, 40:46] = np.nan
+    times = np.datetime64("2020-06-01T00:00", "ns") + np.arange(t) * np.timedelta64(300, "s")
+    labels = run_detection(bt, wvd, swd, times)
+    coords = {"t": times, "y": np.arange(h) * 2000.0, "x": np.arange(w) * 2000.0}
+    opts = DetectionOptions(save_spatial_props=True)
+    out = {}
+    for device in ("cuda", "cpu"):
+        ds = Dataset(coords=coords)
+        for name in ("core_label", "thick_anvil_label", "thin_anvil_label"):
+            ds[name] = DataArray(labels[name].to(device), dims=("t", "y", "x"))
+        fields = [DataArray(a, coords=coords, dims=("t", "y", "x"), name=n,
+                            attrs={"long_name": n, "units": "K"})
+                  for a, n in ((bt, "bt"), (wvd, "wvd"), (swd, "swd"))]
+        stats = {}
+        out[device] = prepare_output(ds, *fields, opts=opts, device=device, stats=stats)
+        assert {"schema_s", "label_props_s", "field_props_s"} <= set(stats)
+    assert out["cpu"].coords["core"].size > 0 and out["cpu"].coords["anvil"].size > 0
+    assert out["cpu"]["core_nan_flag"].values.dtype == bool
+    compare_datasets(out["cpu"], out["cuda"])

@@ -1,6 +1,6 @@
 """PyTorch port of ``tobac_flow_tpu`` for CUDA on NVIDIA Hopper: the fused
-flow → fields → watershed path, and the detection chain of the ingest
-CLIs up to its label volumes.
+flow → fields → watershed path, and the detection of the ingest CLIs
+from the fields to the detection file.
 
 The JAX package is the reference this package is held against; this one
 imports neither it nor JAX.  Public entry points:
@@ -10,7 +10,9 @@ imports neither it nor JAX.  Public entry points:
 - :func:`tobac_flow_tpu_torch.ops.watershed.watershed`
 - :func:`tobac_flow_tpu_torch.core.flow.create_flow` and
   :class:`tobac_flow_tpu_torch.core.flow.Flow`
-- :func:`tobac_flow_tpu_torch.detect.chain.run_detection`
+- :func:`tobac_flow_tpu_torch.detect.chain.run_detection` (the label volumes)
+- :func:`tobac_flow_tpu_torch.cli.common.run_detection` (the detection
+  dataset) and ``python -m tobac_flow_tpu_torch.cli.dcc_detect_synthetic``
 - :class:`tobac_flow_tpu_torch.models.farneback.FarnebackFlow`
 """
 

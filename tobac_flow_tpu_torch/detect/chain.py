@@ -25,14 +25,20 @@ STAGES = ("flow", "detect_cores", "anvil_markers", "thick_anvils", "relabel_anvi
 
 
 class DetectionOptions:
-    """The chain's thresholds and flow settings (the reference CLI's
-    defaults)."""
+    """Pipeline thresholds, flow settings and output choices (the
+    reference CLI's defaults, ``cli/common.DetectionOptions``).  The chain
+    reads the thresholds and flow settings; ``cli.common.run_detection``
+    also reads ``save_*``, ``checkpoint_path`` and ``flow_factory`` (a
+    function of the BT field that returns the ``Flow`` to use)."""
 
     def __init__(self, wvd_threshold=0.25, bt_threshold=0.5, overlap=0.5,
                  absolute_overlap=4, subsegment_shrink=0.0, t_offset=3, use_wvd=False,
                  thick_upper=-5.0, thick_lower=-12.5, thin_upper=0.0, thin_lower=-7.5,
                  erode_distance=2, relabel=True, flow_model="Farneback", vr_steps=1,
-                 smoothing_passes=1, interp_method="cubic"):
+                 smoothing_passes=1, interp_method="cubic", save_label_props=True,
+                 save_spatial_props=False, save_field_props=True, save_bt=False,
+                 save_wvd=False, save_swd=False, save_anvil_markers=False,
+                 checkpoint_path=None, flow_factory=None):
         self.__dict__.update(locals())
         del self.__dict__["self"]
 

@@ -1,10 +1,10 @@
 """Label bookkeeping (counterpart of the parts of
-``tobac_flow_tpu/utils/labels.py`` the detection chain uses).
+``tobac_flow_tpu/utils/labels.py`` that ``run_detection`` uses).
 
 Volume-sized work (renumbering, splitting labels by step, grouping pixels
-by label) runs on the label tensor's device; the per-label tables it
-produces, and the per-label Python functions of ``labeled_comprehension``,
-run on the host.
+by label, the per-label reductions of :class:`LabelSegments`) runs on the
+label tensor's device; the per-label tables it produces, and the
+per-label Python functions of ``labeled_comprehension``, run on the host.
 """
 
 from __future__ import annotations
@@ -16,7 +16,85 @@ import torch
 
 from tobac_flow_tpu_torch.ops.ccl import flat_label
 
-__all__ = ["labeled_comprehension", "make_step_labels", "remap_labels", "slice_labels"]
+__all__ = [
+    "LabelSegments", "labeled_comprehension", "make_step_labels", "remap_labels",
+    "slice_labels", "unique_labels",
+]
+
+
+class LabelSegments:
+    """The pixels of each label 1..n of a non-negative label volume (a
+    tensor; n its largest label), for per-label reductions on its device:
+    the counterpart of the reference's per-label comprehensions
+    (``apply_func_to_labels``), which sort the volume and call a Python
+    function once per label.
+
+    ``gather`` picks a field's values at the labelled pixels; ``sum`` and
+    ``reduce`` turn such per-pixel values into n + 1 per-label bins (bin 0
+    unused), over all labelled pixels or those flagged by ``keep``; ``at``
+    takes bins at label values to the host, with a default for a label
+    that has no pixel.  Float sums run through ``index_put_`` with
+    ``accumulate=True``, whose CUDA version sorts the pixels by bin and
+    adds each bin's values in pixel order, so that a sum does not change
+    from run to run."""
+
+    def __init__(self, labels):
+        self.labels = labels
+        self.n = max(int(labels.max()), 0) if labels.numel() else 0
+        self.mask = labels > 0
+        self.bins = labels[self.mask].long()
+        self.counts = torch.bincount(self.bins, minlength=self.n + 1)
+        self._present = None
+
+    def gather(self, values):
+        """``values`` (a tensor or array broadcasting against the volume)
+        at the labelled pixels, in raster order."""
+        values = torch.as_tensor(values, device=self.labels.device)
+        return values.expand(self.labels.shape)[self.mask]
+
+    def _select(self, values, keep):
+        if keep is None:
+            return self.bins, values
+        return self.bins[keep], values[keep]
+
+    def sum(self, values, keep=None, dtype=torch.float64):
+        """Per-label sums of per-pixel ``values``, accumulated in ``dtype``."""
+        bins, values = self._select(values, keep)
+        out = torch.zeros(self.n + 1, dtype=dtype, device=self.labels.device)
+        return out.index_put_((bins,), values.to(dtype), accumulate=True)
+
+    def reduce(self, values, how, keep=None, empty=0):
+        """Per-label ``how`` ("amin", "amax") of per-pixel ``values``;
+        ``empty`` in a bin without values."""
+        bins, values = self._select(values, keep)
+        out = torch.full((self.n + 1,), empty, dtype=values.dtype, device=self.labels.device)
+        return out.scatter_reduce_(0, bins, values, how, include_self=False)
+
+    def at(self, per_label, index, default):
+        """``per_label`` bins at the label values ``index``, as numpy;
+        ``default`` for a label without pixels."""
+        if self._present is None:
+            self._present = self.counts.cpu().numpy() > 0
+        index = np.atleast_1d(np.asarray(index, dtype=np.int64))
+        inside = (index > 0) & (index <= self.n)
+        safe = np.where(inside, index, 0)
+        found = inside & self._present[safe]
+        return np.where(found, per_label.cpu().numpy()[safe], default)
+
+
+def unique_labels(labels):
+    """Sorted nonzero label values present in a tensor, as numpy of its
+    dtype (a bincount on its device where the labels are non-negative
+    integers)."""
+    labels = torch.as_tensor(labels)
+    dtype = torch.empty((), dtype=labels.dtype).numpy().dtype
+    if labels.numel() == 0:
+        return np.empty(0, dtype=dtype)
+    if not labels.is_floating_point() and int(labels.min()) >= 0:
+        present = torch.nonzero(torch.bincount(labels.reshape(-1).long())).squeeze(1)
+    else:
+        present = torch.unique(labels)
+    return present[present != 0].cpu().numpy().astype(dtype)
 
 
 def _sequential(keys, fg, shape):
