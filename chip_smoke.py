@@ -36,12 +36,24 @@
    the card against the CPU's (``compare_datasets``: identical but the
    float means and stds, held to the CPU tests' rtol 1e-5), every stage
    non-empty.  Then one profiled run on (6, 1024, 1536), split by the
-   stages as in 6, which also warms the path up.  Then two timed runs on
+   stages as in 6, which also warms the path up.  Then one timed run on
    (8, 1024, 1536), the bench frame at its full width with the depth cut
-   to 8 frames: each stage's seconds and objects, the variables, the peak
-   memory and the kernel's launches by shape; every stage finds objects
-   and the runs give identical datasets.  Last, the output stages on the
-   CPU from the second run's labels, timed and held to the card's dataset.
+   to 8 frames: each stage's seconds, peak memory and objects, the
+   variables, the peak memory and the kernel's launches by shape; every
+   stage finds objects.  Last, the output stages on the CPU from the run's
+   labels, timed and held to the card's dataset.
+8. The time-chunked flood.  On ``CHUNK_SMALL`` in 3 chunks, with the
+   slice's markers and with a -1 barrier ring: the card's labels equal the
+   CPU's given the same inputs.  At ``FIT_DEPTH`` frames of the standard
+   job's 1500x2500 (``JOB_FRAME``), which the card floods whole: chunked
+   in 3 chunks against whole, agreement at least 0.995.  Then the main
+   path, ``fused_flow_watershed``, at 1500x2500 and 1.5 times the most
+   frames the card floods whole (``FLOOD_BYTES_PER_PX`` against its free
+   memory), in at least 3 chunks: each stage's seconds and peak, the
+   chunks, passes and chunk floods, the peak memory; every marker keeps
+   its label and a label crosses every chunk boundary.  Last, the kernel
+   against its plain version (bit-equal) and timed at each shape class
+   these floods launched it with that 3 did not cover.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -72,13 +84,16 @@ import time
 import numpy as np
 import torch
 
-from bench import make_markers, make_scene
+from bench import _cell_params, make_markers, make_scene
+from tobac_flow_tpu_torch import device as port_device
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
 from tobac_flow_tpu_torch.cli import common as cli
+from tobac_flow_tpu_torch.cli import dcc_detect_synthetic
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
 from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow
+from tobac_flow_tpu_torch.ops import watershed as ws
 from tobac_flow_tpu_torch.ops import ws_sweeps
 from tobac_flow_tpu_torch.pipeline import _normalise_pair, fused_flow_watershed, pair_flows
 from tools.parity_detect import make_multistorm_scene
@@ -94,10 +109,12 @@ CHAIN_SMALL = (9, 64, 96)
 # objects; at 6, 15, 5, 5, 5 and 5).  On an H100 80GB HBM3 (700 W) a run
 # took 280-293 s at 24 frames and 125-143 s at 8.  The profiled run is cut
 # to 6 frames: the profiler's processing grows with the device ops, 4.6
-# million at 6 frames (330-350 s with the run) and 6.2 million at 8.
+# million at 6 frames (330-350 s with the run) and 6.2 million at 8.  One
+# timed run, not two, leaves the script's limit room for the time-chunked
+# flood's phases (two runs gave identical datasets in every earlier call).
 CHAIN_FULL = (8,) + FULL[1:]
 CHAIN_PROFILED = (6,) + FULL[1:]
-CHAIN_RUNS = 2
+CHAIN_RUNS = 1
 CHAIN_LABELS = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
 # the stages of cli.common.run_detection: the chain's, then the output's
 CLI_STAGES = CHAIN_STAGES + cli.OUTPUT_STAGES
@@ -137,6 +154,19 @@ IN_PLANE = {
     2: ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)),
 }
 IN_PLANE[3] = IN_PLANE[2]  # connectivity 3 adds only temporal taps
+# the time-chunked flood: card against CPU at a small size (3 chunks);
+# chunked against whole volume at the standard job's 1500x2500 frame
+# (BASELINE.md) at a depth the card floods whole (3 chunks); and the main
+# path at that frame past the depth the card floods whole
+CHUNK_SMALL = (12, 48, 64)
+JOB_FRAME = (1500, 2500)
+FIT_DEPTH = 12
+DEEP_OVER_FIT = 1.5  # the deep run's depth over the most the card floods whole
+CHUNK_AGREEMENT = 0.995  # the reference's bar, chunked against whole volume
+# ws_sweeps launches of one run before the flood could run in time chunks
+# (PERF.md): the bench slice and the chain at 8 frames still flood whole
+# volumes
+WHOLE_FLOOD_LAUNCHES = {"fused_flow_watershed": 248, "run_detection": 1188}
 
 
 T_START = time.perf_counter()
@@ -284,12 +314,12 @@ def check_kernel(device):
     return worst
 
 
-def time_shape_classes(device, card_line):
+def time_shape_classes(device, card_line, classes=SHAPE_CLASSES):
     """Kernel ms per launch with its inputs cold in L2 and, where one
     launch fits in L2, warm; plain ms; and the bound, at every shape class
     (connectivity 1, from the live state of ``sweep_inputs``)."""
     rows = {}
-    for shape, k in SHAPE_CLASSES:
+    for shape, k in classes:
         args = sweep_inputs(shape, 1, device)
         sets = cold_sets(args)
 
@@ -619,23 +649,20 @@ def run_chain_full(device, card_line):
                            f"cli.run_detection {CHAIN_PROFILED}")
     del fields
     fields = chain_fields(CHAIN_FULL, device)
-    sweeps = ws_sweeps.spatial_sweeps
     first = None
     for run in range(1, CHAIN_RUNS + 1):
         gc.collect()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        port_device.reset_peak_memory(device)
         resident = torch.cuda.memory_allocated()
         stats, labels = {}, ({} if run == CHAIN_RUNS else None)
-        sweeps.launches = 0
-        sweeps.launches_by_shape.clear()
+        reset_counts()
         t0 = time.perf_counter()
         out = run_cli(fields, stats, labels)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = sweeps.launches
-        by_shape = {shape_key(key[:3], key[3]): n for key, n in sweeps.launches_by_shape.items()}
-        peak = torch.cuda.max_memory_allocated()
+        launches, by_shape = read_counts()
+        peak = port_device.peak_memory(device)
         if launches == 0:
             raise AssertionError("chain: the ws_sweeps kernel was never launched")
         empty = [name for name in CHAIN_STAGES[1:] if stats[name + "_n"] == 0]
@@ -655,12 +682,271 @@ def run_chain_full(device, card_line):
             + ", ".join(f"{name} {stats[name + '_n']}" for name in CHAIN_STAGES[1:])
             + f"; {len(out.data_vars)} variables, " + ", ".join(
                 f"{c} {out.coords[c].size}" for c in CLI_COORDS)
-            + f"; kernel launches {launches} {by_shape}; device memory resident at start "
+            + "; stage peaks " + ", ".join(
+                f"{name} {stats[name + '_peak_bytes'] / 2**30:.3f} GiB" for name in CLI_STAGES)
+            + f"; kernel launches {launches} (before time chunks: "
+            f"{WHOLE_FLOOD_LAUNCHES['run_detection']}) "
+            f"{by_shape}; device memory resident at start "
             f"{resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
         del out
-    log("chain: the runs give equal datasets, every variable identical")
+    if CHAIN_RUNS > 1:
+        log("chain: the runs give equal datasets, every variable identical")
     check_output_stages_on_cpu(first, labels, fields, card_line)
     return launches, by_shape, *profiled
+
+
+def job_scene(t, h, w, threads=8):
+    """``bench.make_scene(t, h, w)`` bit for bit, its frames computed in
+    threads (numpy's exp releases the GIL; one 1500x2500 frame takes about
+    a second on one core)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(0)
+    cy, cx, radius, depth = _cell_params(h, w, seed=0)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    bt = np.empty((t, h, w), np.float32)
+
+    def frame(i):
+        grow = min(0.4 + 0.6 * i / max(t - 1, 1), 1.0)
+        acc = np.zeros((h, w), np.float32)
+        for k in range(len(cy)):
+            r2 = (xx - cx[k] - 3.0 * i) ** 2 + (yy - cy[k] - 1.5 * i) ** 2
+            acc += depth[k] * grow * np.exp(-r2 / (2 * radius[k] ** 2))
+        bt[i] = 290.0 - np.minimum(acc, 85.0)
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(frame, range(t)))
+    bt += rng.normal(0, 0.3, bt.shape).astype(np.float32)
+    return bt
+
+
+def check_cli_h5py():
+    """Where h5py cannot be imported (the card's machine has none), the
+    synthetic CLI raises naming it before any stage of the chain runs."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        log("h5py imports here: the CLI's early check passes, and it writes its file")
+        return
+    before = ws_sweeps.spatial_sweeps.launches
+    t0 = time.perf_counter()
+    try:
+        # the CLI raises before it makes its output directory
+        dcc_detect_synthetic.main(["-sd", str(ws_sweeps._BUILD_DIR / "cli"), "-t", "8",
+                                   "-y", "32", "-x", "48"])
+    except ImportError as err:
+        if "h5py" not in str(err):
+            raise
+        seconds = time.perf_counter() - t0
+        if ws_sweeps.spatial_sweeps.launches != before or seconds > 5:
+            raise AssertionError(f"the CLI raised for h5py only after {seconds:.1f} s")
+        log(f"no h5py here: the synthetic CLI raised in {seconds:.3f} s, before any stage "
+            f"of the chain: {err}")
+        return
+    raise AssertionError("the synthetic CLI ran without h5py")
+
+
+def chunk_budget(shape, mixed, chunk):
+    """A ``budget_bytes`` under which ``watershed`` floods a volume of
+    ``shape`` in chunks of ``chunk`` frames (or fewer, evened out)."""
+    t, h, w = shape
+    return ((chunk + 2) * ws.FLOOD_BYTES_PER_PX[mixed] * h * w
+            + t * h * w * ws._CHUNKED_BYTES_PER_PX)
+
+
+def reset_counts():
+    ws_sweeps.spatial_sweeps.launches = 0
+    ws_sweeps.spatial_sweeps.launches_by_shape.clear()
+
+
+def read_counts():
+    sweeps = ws_sweeps.spatial_sweeps
+    return sweeps.launches, {shape_key(key[:3], key[3]): n
+                             for key, n in sweeps.launches_by_shape.items()}
+
+
+def chunk_line(stats):
+    return (f"{stats['chunks']} chunks of {stats['chunk_frames']} frames, "
+            f"{stats['chunk_passes']} passes, {stats['chunk_floods']} chunk floods, "
+            f"{stats['chunk_skips']} skipped; rounds " + ", ".join(
+                f"{k} {v}" for k, v in sorted(stats.items()) if k.endswith("rounds")))
+
+
+def check_chunked_small(device, card_line):
+    """The time-chunked flood on the card against the CPU at CHUNK_SMALL,
+    3 chunks, with the slice's markers and with a -1 barrier ring added
+    inside the mask, given the same inputs (the CPU's flow and fields):
+    identical labels."""
+    from tobac_flow_tpu_torch.pipeline import _fields_stage
+
+    bt = make_scene(*CHUNK_SMALL)
+    markers, _ = make_markers(bt)
+    fwd, bwd, _, field, edges = _fields_stage(torch.from_numpy(bt), 5.0)
+    markers = torch.from_numpy(markers)
+    mask = field > 0.05
+    mixed = torch.where((markers == 0) & mask & (field < 0.1), -1, markers)
+    for kind, mk in (("plain", markers), ("mixed", mixed)):
+        budget = chunk_budget(CHUNK_SMALL, kind == "mixed", 4)
+        out = {}
+        for where in ("cpu", "card"):
+            stats = {}
+            reset_counts()
+            labels = ws.watershed(fwd, bwd, edges, mk, mask=mask, max_iters=128, stats=stats,
+                                  budget_bytes=budget, device="cpu" if where == "cpu" else None)
+            out[where] = (labels.cpu(), stats, ws_sweeps.spatial_sweeps.launches)
+        (cpu, st_cpu, _), (card, st_card, launches) = out["cpu"], out["card"]
+        if st_card.get("chunks", 0) < 3 or launches == 0:
+            raise AssertionError(f"chunked small {kind}: {st_card.get('chunks')} chunks, "
+                                 f"{launches} launches")
+        if not torch.equal(cpu, card) or st_cpu != st_card:
+            raise AssertionError(f"chunked small {kind}: card labels differ from the CPU's at "
+                                 f"{int((cpu != card).sum())} pixels ({st_card} vs {st_cpu})")
+        log(f"chunked flood {CHUNK_SMALL} {kind} markers: the card's labels equal the CPU's "
+            f"({chunk_line(st_card)}; {launches} kernel launches)")
+
+
+def run_chunked_fit(device, card_line):
+    """At FIT_DEPTH x JOB_FRAME, which the card floods whole: the flood of
+    the fused path's inputs whole (the default budget) and in 3 chunks (a
+    budget for a third of the frames).  Labels agree at CHUNK_AGREEMENT.
+    Returns the chunked run's launches by shape."""
+    from tobac_flow_tpu_torch.pipeline import _fields_stage
+
+    shape = (FIT_DEPTH,) + JOB_FRAME
+    t0 = time.perf_counter()
+    bt = job_scene(*shape)
+    markers, n = make_markers(bt)
+    log(f"made {shape} with {n} markers on the host in {time.perf_counter() - t0:.1f} s")
+    fwd, bwd, growth, field, edges = _fields_stage(torch.from_numpy(bt).to(device), 5.0)
+    markers = torch.from_numpy(markers).to(device)
+    mask = field > 0.05
+    del growth, field
+    runs = {}
+    for name, budget in (("whole", None), ("chunked", chunk_budget(shape, False, -(-shape[0] // 3)))):
+        stats = {}
+        gc.collect()
+        torch.cuda.synchronize()
+        port_device.reset_peak_memory(device)
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        labels = ws.watershed(fwd, bwd, edges, markers, mask=mask, max_iters=128, stats=stats,
+                              budget_bytes=budget, device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, by_shape = read_counts()
+        peak = port_device.peak_memory(device) - before
+        runs[name] = labels, stats, by_shape
+        log(f"flood of {shape} {name} [{card_line}]: {seconds:.3f} s, peak {peak / 2**30:.3f} GiB "
+            f"over its inputs ({peak / np.prod(shape):.1f} B/px), {launches} kernel launches; "
+            + (chunk_line(stats) if name == "chunked" else "rounds " + ", ".join(
+                f"{k} {v}" for k, v in sorted(stats.items()) if k.endswith("rounds"))))
+    (whole, st_whole, _), (chunked, st_chunked, by_shape) = runs["whole"], runs["chunked"]
+    if "chunks" in st_whole or st_chunked.get("chunks", 0) < 3:
+        raise AssertionError(f"flood of {shape}: whole {st_whole.get('chunks')} chunks, "
+                             f"chunked {st_chunked.get('chunks')}")
+    agree = float((chunked == whole).float().mean())
+    labelled = float((whole != 0).float().mean())
+    if agree < CHUNK_AGREEMENT or labelled == 0:
+        raise AssertionError(f"flood of {shape}: chunked agrees with whole at {agree:.6f}")
+    log(f"flood of {shape}: chunked labels agree with the whole volume's at {agree:.6f} "
+        f"(bar {CHUNK_AGREEMENT}); labelled {labelled:.4f} of the pixels")
+    return by_shape
+
+
+def run_deep(device, card_line):
+    """``fused_flow_watershed`` at JOB_FRAME and DEEP_OVER_FIT times the most
+    frames the card floods whole (FLOOD_BYTES_PER_PX and the resident
+    inputs against the free memory), in at least 3 time chunks.  Returns
+    (launches, launches by shape)."""
+    h, w = JOB_FRAME
+    torch.cuda.empty_cache()
+    budget = port_device.memory_budget(device)
+    # held through the flood: bt, the flows (8 B each), growth, edges and
+    # markers (4 B), the mask (1 B) and the labels (4 B)
+    resident = 4 + 16 + 4 + 4 + 4 + 1 + 4
+    fit = budget // ((ws.FLOOD_BYTES_PER_PX[False] + resident) * h * w)
+    t = int(math.ceil(DEEP_OVER_FIT * fit))
+    shape = (t, h, w)
+    total = torch.cuda.get_device_properties(device).total_memory
+    if t * h * w * ws.FLOOD_BYTES_PER_PX[False] <= total:
+        raise AssertionError(f"deep main path: {shape} would flood whole in {total} bytes")
+    own = ws.chunk_frames(t, h, w, budget - t * h * w * resident, False)
+    chunk = min(own, -(-t // 3))
+    t0 = time.perf_counter()
+    bt = job_scene(*shape)
+    markers, n = make_markers(bt)
+    log(f"deep main path: the card floods at most {fit} frames of {JOB_FRAME} whole "
+        f"({budget / 2**30:.1f} GiB budget of {total / 2**30:.1f} GiB, "
+        f"{ws.FLOOD_BYTES_PER_PX[False]} + {resident} B/px); "
+        f"running {shape} ({np.prod(shape) / 1e6:.0f} Mpx, {n} markers, made on the host in "
+        f"{time.perf_counter() - t0:.1f} s); the card's own budget would give "
+        f"{-(-t // own)} chunks of {own} frames, this run {-(-t // chunk)} of {chunk}")
+    bt_dev = torch.from_numpy(bt).to(device)
+    del bt
+    gc.collect()
+    torch.cuda.synchronize()
+    port_device.reset_peak_memory(device)
+    resident_start = torch.cuda.memory_allocated()
+    stats = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    fwd, growth, edges, labels = fused_flow_watershed(
+        bt_dev, 5.0, markers=markers, stats=stats,
+        budget_bytes=chunk_budget(shape, False, chunk), device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_shape = read_counts()
+    peak = port_device.peak_memory(device)
+    if stats.get("chunks", 0) < 3 or launches == 0:
+        raise AssertionError(f"deep main path: {stats.get('chunks')} chunks, {launches} launches")
+    if not bool(torch.isfinite(fwd).all()):
+        raise AssertionError("deep main path: non-finite flow")
+    lab = labels.cpu().numpy()
+    present = set(np.unique(lab[lab > 0]).tolist())
+    if present != set(range(1, n + 1)) or not np.array_equal(lab[markers != 0],
+                                                              markers[markers != 0]):
+        raise AssertionError(f"deep main path: labels {sorted(present)[:8]}... of 1..{n}")
+    step = stats["chunk_frames"]
+    crossing = []
+    for b in range(step, t, step):
+        both = set(np.unique(lab[b - 1]).tolist()) & set(np.unique(lab[b]).tolist()) - {0}
+        if not both:
+            raise AssertionError(f"deep main path: no label crosses the chunk boundary at {b}")
+        crossing.append(len(both))
+    log(f"deep main path {shape} through fused_flow_watershed [{card_line}]: {seconds:.3f} s, "
+        f"{np.prod(shape) / 1e6 / seconds:.3f} Mpix/s; " + "; ".join(
+            f"{name} {stats[name + '_s']:.3f} s, peak {stats[name + '_peak_bytes'] / 2**30:.3f} "
+            f"GiB ({(stats[name + '_peak_bytes'] - stats[name + '_start_bytes']) / np.prod(shape):.1f}"
+            f" B/px over its start)" for name in STAGES)
+        + f"; {chunk_line(stats)}; labels crossing each chunk boundary {crossing}; kernel "
+        f"launches {launches} {by_shape}; device memory at start {resident_start / 2**30:.3f} "
+        f"GiB, peak {peak / 2**30:.3f} GiB")
+    return launches, by_shape
+
+
+def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
+    """The kernel against its plain version (bit-equal, connectivity 1) and
+    timed at every (shape, K) of ``by_shape`` that ``per_shape`` lacks."""
+    worst = 0.0
+    for key in sorted(set(by_shape) - set(per_shape)):
+        dims, k = key.split(" K=")
+        shape, k = tuple(int(d) for d in dims.split("x")), int(k)
+        args = sweep_inputs(shape, 1, device)
+        plain = ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k)
+        kern = ws_sweeps.spatial_sweeps(*args, IN_PLANE[1], k)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("claim", "claim2", "meta"), plain, kern):
+            if not torch.equal(a, b):
+                raise AssertionError(f"kernel != plain at {key}: {name} differs at "
+                                     f"{int((a != b).sum())} pixels")
+            worst = max(worst, max_abs_err(a, b))
+        log(f"kernel == plain (bit-equal) at {key}, connectivity 1")
+        del args, plain, kern
+        per_shape.update(time_shape_classes(device, card_line, ((shape, k),)))
+    return worst
 
 
 def main():
@@ -682,6 +968,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
 
+    check_cli_h5py()
     worst = check_kernel(device)
     per_shape = time_shape_classes(device, card_line)
 
@@ -706,26 +993,25 @@ def main():
     markers, n_markers = make_markers(bt)
     bt_dev = torch.from_numpy(bt).to(device)
     fused_flow_watershed(bt_dev, 5.0, markers=markers)
-    sweeps = ws_sweeps.spatial_sweeps
     npix = float(np.prod(FULL))
     first = None
     for run in range(1, RUNS + 1):
         gc.collect()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        port_device.reset_peak_memory(device)
         resident = torch.cuda.memory_allocated()
         stats = {}
-        sweeps.launches = 0
-        sweeps.launches_by_shape.clear()
+        reset_counts()
         t0 = time.perf_counter()
         fwd, growth, edges, labels = fused_flow_watershed(bt_dev, 5.0, markers=markers,
                                                           stats=stats)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = sweeps.launches
-        by_shape = {shape_key(key[:3], key[3]): n for key, n in sweeps.launches_by_shape.items()}
-        peak = torch.cuda.max_memory_allocated()
+        launches, by_shape = read_counts()
+        peak = port_device.peak_memory(device)
 
+        if "chunks" in stats:
+            raise AssertionError("full slice: the flood ran in time chunks")
         if not bool(torch.isfinite(fwd).all()):
             raise AssertionError("full slice: non-finite flow")
         if launches == 0:
@@ -737,8 +1023,12 @@ def main():
         log(f"full slice {FULL}, {n_markers} markers, run {run} [{card_line}]: "
             f"{seconds:.3f} s, {npix / 1e6 / seconds:.3f} Mpix/s; flow "
             f"{stats['flow_s']:.3f} s, fields {stats['fields_s']:.3f} s, watershed "
-            f"{stats['watershed_s']:.3f} s; kernel launches {launches}; device memory "
-            f"resident at start {resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
+            f"{stats['watershed_s']:.3f} s; stage peaks " + ", ".join(
+                f"{name} {stats[name + '_peak_bytes'] / 2**30:.3f} GiB" for name in STAGES)
+            + f"; kernel launches {launches} (before time chunks: "
+            f"{WHOLE_FLOOD_LAUNCHES['fused_flow_watershed']}); "
+            f"device memory resident at start {resident / 2**30:.3f} GiB, peak "
+            f"{peak / 2**30:.3f} GiB")
         del fwd, growth, edges, labels
     lab = first.cpu().numpy()
     present = set(np.unique(lab[lab > 0]).tolist())
@@ -770,16 +1060,25 @@ def main():
     unknown = set(chain_by_shape) - set(per_shape)
     if unknown:
         raise AssertionError(f"the chain launched the kernel at untimed shapes {sorted(unknown)}")
-    paths = {"fused_flow_watershed": by_shape, "run_detection": chain_by_shape}
+
+    # the time-chunked flood: card against CPU, chunked against whole at
+    # the job's frame, then the main path past what the card floods whole
+    check_chunked_small(device, card_line)
+    fit_by_shape = run_chunked_fit(device, card_line)
+    deep_launches, deep_by_shape = run_deep(device, card_line)
+    worst = max(worst, check_and_time_new_shapes({**fit_by_shape, **deep_by_shape}, per_shape,
+                                                 device, card_line))
+    paths = {"fused_flow_watershed": by_shape, "run_detection": chain_by_shape,
+             "fused_flow_watershed_deep": deep_by_shape}
 
     for key, row in per_shape.items():
-        n = by_shape.get(key, 0)
-        m = chain_by_shape.get(key, 0)
+        counts = [c.get(key, 0) for c in paths.values()]
         log(f"shape {key}: {row['ms']:.4f} ms per launch cold ({row['warm_l2_ms']:.4f} warm), "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; launches per run "
-            f"{n} (bench slice), {m} (detection chain); ms per run cold "
-            f"{n * row['ms']:.3f} and {m * row['ms']:.3f} [{card_line}]")
+            f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; plain "
+            f"{row['plain_ms']:.3f} ms; launches per run {counts} ({', '.join(paths)}; "
+            f"{fit_by_shape.get(key, 0)} in the chunked flood at {FIT_DEPTH} frames); ms per "
+            f"run cold {[round(n * row['ms'], 3) for n in counts]} [{card_line}]")
 
     def per_run(field, counts):
         return sum(n * per_shape[key][field] for key, n in counts.items())
@@ -789,15 +1088,15 @@ def main():
 
     print(json.dumps({"kernels": [{
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches + chain_launches,
+        "replaces": KERNEL_REPLACES, "launches": launches + chain_launches + deep_launches,
         "max_abs_err": worst,
         "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
         "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
-        "per": "one run of each main path (the bench slice and the detection chain): the "
-               "sum over its launches_by_shape of launches x ms per launch, with the "
-               "inputs cold in L2",
+        "per": "one run of each main path (the bench slice, the detection chain and the "
+               "deep time-chunked slice): the sum over its launches_by_shape of launches x "
+               "ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},
         "ms_by_path": {p: per_run("ms", c) for p, c in paths.items()},
         "plain_ms_by_path": {p: per_run("plain_ms", c) for p, c in paths.items()},

@@ -80,6 +80,30 @@ def test_open_dataset_reads_the_other_package(port_file, reader):
         assert np.array_equal(a[k].values, v.values, equal_nan=v.dtype.kind in "fmM"), k
 
 
+@pytest.mark.parametrize("entry", ["dcc_detect_synthetic", "run_detection"])
+def test_missing_h5py_raises_before_the_chain(tmp_path, monkeypatch, entry):
+    """Without h5py the CLI, and ``cli.common.run_detection`` with a
+    checkpoint, raise naming h5py before any stage of the chain runs."""
+    import sys
+
+    from tobac_flow_tpu_torch.cli import common
+    from tobac_flow_tpu_torch.detect import chain
+
+    def no_chain(*args, **kwargs):
+        raise AssertionError("the chain started")
+
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    monkeypatch.setattr(chain, "run_detection", no_chain)
+    monkeypatch.setattr(dcc_detect_synthetic, "make_scene", no_chain)
+    with pytest.raises(ImportError, match="h5py"):
+        if entry == "dcc_detect_synthetic":
+            dcc_detect_synthetic.main(["-sd", str(tmp_path), "--device", "cpu"] + ARGS)
+        else:
+            common.run_detection(None, None, None, None, device="cpu",
+                                 opts=common.DetectionOptions(checkpoint_path=tmp_path / "c.nc"))
+    assert list(tmp_path.iterdir()) == []
+
+
 if __name__ == "__main__":
     from tobac_flow_tpu.cli import dcc_detect_synthetic as jax_cli
 

@@ -169,3 +169,76 @@ def test_output_stages_on_card_equal_cpu(cuda):
     assert out["cpu"].coords["core"].size > 0 and out["cpu"].coords["anvil"].size > 0
     assert out["cpu"]["core_nan_flag"].values.dtype == bool
     compare_datasets(out["cpu"], out["cuda"])
+
+
+@pytest.mark.parametrize("kind", ["plain", "mixed"])
+def test_chunked_watershed_equal_on_cuda_and_cpu(cuda, kind):
+    """The time-chunked flood in 3 chunks on the card and on the CPU, given
+    the same inputs: identical labels, the same passes and floods."""
+    from chip_smoke import chunk_budget
+
+    bt = make_scene(12, 64, 96)
+    markers, _ = make_markers(bt)
+    rng = np.random.default_rng(1)
+    flow = rng.normal(0, 1.5, bt.shape + (2,)).astype(np.float32)
+    field = np.clip((260.0 - bt) / 10.0, 0.0, 1.0).astype(np.float32)
+    if kind == "mixed":
+        markers = np.where((markers == 0) & (field > 0.05) & (field < 0.1), -1, markers)
+    args = [torch.from_numpy(a) for a in (flow, -flow, 1.0 - field, markers, field > 0.05)]
+    budget = chunk_budget(bt.shape, kind == "mixed", 4)
+    out = {}
+    for device in ("cpu", None):
+        stats = {}
+        labels = watershed(*args[:4], mask=args[4], max_iters=64, stats=stats,
+                           budget_bytes=budget, device=device)
+        out[device] = labels.cpu(), stats
+    assert out[None][1]["chunks"] == 3
+    assert torch.equal(out["cpu"][0], out[None][0])
+    assert out["cpu"][1] == out[None][1]
+
+
+def test_chunked_coarse_scene_on_card_matches_jax(cuda):
+    """The 12×128×128 mixed scene of the reference's global-coarse-solve
+    test, in 3 chunks of 4 frames on the card: the JAX package's chunked
+    labels without its global coarse solve (recorded by
+    ``tests/test_torch_watershed_chunked.py``), and the whole-volume flood
+    the JAX package's whole-volume labels."""
+    from test_torch_watershed_chunked import DATA, SCENES, _digest
+
+    from tobac_flow_tpu_torch.ops import watershed as pws
+
+    recorded = np.load(DATA)
+    scene = SCENES["coarse"]()
+    assert str(recorded["coarse_digest"]) == _digest(scene)
+    fwd, bwd, field, markers = (torch.from_numpy(a).to(cuda) for a in scene)
+    taps = pws._structure_taps_3d(pws.connectivity_structure(1))
+    stats = {}
+    chunked = pws._watershed_time_chunked(
+        field, markers, torch.ones(field.shape, dtype=torch.bool, device=cuda), fwd, bwd,
+        taps, chunk_t=4, max_iters_cap=1 << 30, multigrid=True, run_scans=True, stats=stats,
+    )
+    whole = watershed(fwd, bwd, field, markers)
+    assert stats["chunks"] == 3
+    np.testing.assert_array_equal(chunked.cpu().numpy(), recorded["coarse_labels"])
+    np.testing.assert_array_equal(whole.cpu().numpy(), recorded["coarse_whole"])
+
+
+def test_stage_peaks_and_memory_budget(cuda):
+    """``device.stage`` records each stage's peak, nested stages too, and
+    ``peak_memory`` keeps the run's across the stages' resets; the budget
+    never exceeds the card's free memory."""
+    from tobac_flow_tpu_torch.device import memory_budget, peak_memory, reset_peak_memory, stage
+
+    reset_peak_memory(cuda)
+    stats = {}
+    with stage("outer", stats, cuda):
+        a = torch.empty(2**28, dtype=torch.uint8, device=cuda)
+        with stage("inner", stats, cuda):
+            b = torch.empty(2**29, dtype=torch.uint8, device=cuda)
+            del b
+        del a
+    assert stats["inner_peak_bytes"] >= stats["inner_start_bytes"] + 2**29
+    assert stats["outer_peak_bytes"] >= stats["outer_start_bytes"] + 2**28 + 2**29
+    assert peak_memory(cuda) >= stats["outer_peak_bytes"]
+    free, total = torch.cuda.mem_get_info(cuda)
+    assert 0 < memory_budget(cuda) <= free and memory_budget(cuda, total) <= total

@@ -24,7 +24,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor, open_dataset
+from tobac_flow_tpu_torch.data.ncdataset import (
+    DataArray, Dataset, as_tensor, open_dataset, require_h5py,
+)
 from tobac_flow_tpu_torch.detect import chain
 from tobac_flow_tpu_torch.detect.analysis import get_label_stats, weighted_statistics_on_labels
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions
@@ -71,9 +73,12 @@ def run_detection(bt, wvd, swd, dataset: Dataset, start_date=None, end_date=None
     the chain's) objects, as ``detect/chain.run_detection`` records them,
     for the chain's stages and :data:`OUTPUT_STAGES`.  With
     ``opts.checkpoint_path`` the dataset with the core labels is written
-    there and read back, as the reference does.  Returns the dataset,
-    holding numpy."""
+    there and read back, as the reference does: then h5py must be
+    importable, which is checked before the chain starts.  Returns the
+    dataset, holding numpy."""
     opts = DetectionOptions() if opts is None else opts
+    if opts.checkpoint_path:
+        require_h5py("run_detection with a checkpoint_path")
     dev = resolve_device(device)
     fields = [_on_device(da, dev) for da in (bt, wvd, swd)]
 

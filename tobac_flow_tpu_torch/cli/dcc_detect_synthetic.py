@@ -16,7 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from tobac_flow_tpu_torch.cli.common import DetectionOptions, run_detection, save_dataset
-from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
+from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, require_h5py
 
 
 def make_scene(t, h, w, seed=0):
@@ -63,6 +63,7 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: the CUDA card)")
     args = parser.parse_args(argv)
+    require_h5py("dcc_detect_synthetic")
 
     bt, wvd, swd = make_scene(args.t, args.y, args.x, args.seed)
     ds = Dataset(coords={"t": bt.coords["t"], "y": bt.coords["y"], "x": bt.coords["x"]})

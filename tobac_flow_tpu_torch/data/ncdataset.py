@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["DataArray", "Dataset", "as_tensor", "open_dataset"]
+__all__ = ["DataArray", "Dataset", "as_tensor", "open_dataset", "require_h5py"]
 
 _EPOCH = np.datetime64("1970-01-01T00:00:00", "ns")
 
@@ -400,6 +400,20 @@ class Dataset:
                 for k, v in var.attrs.items():
                     if v is not None and k not in encoded_keys:
                         ds.attrs[k] = v
+
+
+def require_h5py(what):
+    """Raise ImportError, naming ``what``, where h5py (through which files
+    are written and read) cannot be imported: an entry point that will
+    write a file calls this before its work starts."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError as err:
+        raise ImportError(
+            f"{what} writes netCDF files through h5py, which cannot be imported here "
+            f"({err}); install h5py, or call cli.common.run_detection without "
+            "checkpoint_path and keep the returned dataset in memory"
+        ) from err
 
 
 def open_dataset(path):

@@ -16,6 +16,13 @@ Temporal taps are pushed along the source pixel's rounded flow with the
 reference's two-lane banded scatter-min, so the same pushes survive
 collisions.  The in-plane sweeps go through ``spatial_sweeps`` (the CUDA
 kernel on the GPU).
+
+A volume whose flood would not fit in the device memory left
+(``budget_bytes``; on CUDA by default the free memory less a margin) floods
+in overlapping time chunks, as the reference's ``_watershed_time_chunked``
+does: block Gauss-Seidel over the chunks, each with one frozen halo frame
+per side holding its neighbour's converged state.  The inputs stay on the
+device and each chunk is a slice of them.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from tobac_flow_tpu_torch.device import resolve_device
+from tobac_flow_tpu_torch.device import memory_budget, resolve_device
 from tobac_flow_tpu_torch.ops.warp import shift_axis
 from tobac_flow_tpu_torch.ops.ws_sweeps import (
     LABEL_MASK,
@@ -45,6 +52,20 @@ _GRACE = 2  # quiet rounds that end the label-only Jacobi loop
 _SCAN_CAP = 12  # temporal scan rounds, coarse and fine
 _JACOBI_SWEEPS = 8  # in-plane kernel sweeps after each full sweep of a Jacobi round
 _SCAN_SWEEPS = 4  # in-plane kernel sweeps of each frame step of a scan round
+
+# Device bytes per pixel that a whole-volume flood allocates beyond its
+# inputs at its peak, for plain and for mixed -1/positive markers (the
+# barrier-first pre-flood keeps a second state), rounded up: the most of
+# (max_memory_allocated - memory_allocated before) / pixels that
+# tools/torch_flood_memory.py measured on the fused path's inputs at
+# 6, 12 and 24 x 1500 x 2500 on an H100 80GB HBM3 (700 W): 306.04 and
+# 337.04 (306.00 and 325.00 at 24 x 1024 x 1536).
+FLOOD_BYTES_PER_PX = {False: 307, True: 338}
+# the time-chunked flood's own whole-volume buffers: the labels (int32)
+_CHUNKED_BYTES_PER_PX = 4
+_MIN_CHUNK_FRAMES = 4  # the reference's smallest chunk
+_MIN_CHUNKED_DEPTH = 12  # shorter volumes always flood whole, as in the reference
+_MAX_PASSES = 8  # chunk passes, alternating forward and backward order
 
 
 def connectivity_structure(connectivity):
@@ -263,14 +284,19 @@ def _seed_state(markers):
     return claim, claim.clone(), meta
 
 
+def _round_flow(flow):
+    """Flows rounded half to even and clipped to ±127."""
+    return torch.clamp(torch.round(flow), -127, 127).to(torch.int32)
+
+
 def _ws_prep(field, markers, mask, fwd, bwd):
     """NaN fields become +inf barriers; flows are rounded half to even and
     clipped to ±127; the seeded state is packed; and the band exceedance
     curve ``exceed[k]`` counts in-mask displacement components with
     ``|disp| > k``, k = 0..20."""
     field = torch.where(torch.isnan(field), math.inf, field)
-    fwd_int = torch.clamp(torch.round(fwd), -127, 127).to(torch.int32)
-    bwd_int = torch.clamp(torch.round(bwd), -127, 127).to(torch.int32)
+    fwd_int = _round_flow(fwd)
+    bwd_int = _round_flow(bwd)
     mag = torch.maximum(fwd_int.abs(), bwd_int.abs())[mask]
     counts = torch.bincount(mag.reshape(-1), minlength=128)
     exceed = counts.flip(0).cumsum(0).flip(0)[1:_BAND_CAP + 1]
@@ -428,9 +454,143 @@ def _flood_state(field, markers, mask, fwd_int, bwd_int, state, taps, radius, *,
                   "jacobi_rounds")
 
 
+def chunk_frames(t, h, w, budget, mixed):
+    """Frames per chunk of the time-chunked flood within ``budget`` bytes
+    (the reference's plan, in the port's own bytes per pixel): the most
+    frames whose flood fits with a halo frame each side, then as many
+    chunks as ``t`` frames need, evened out.  Raises MemoryError where not
+    even the smallest chunk, 4 frames, fits."""
+    per_frame = FLOOD_BYTES_PER_PX[mixed] * h * w
+    frames_cap = int(budget) // per_frame - 2
+    if frames_cap < _MIN_CHUNK_FRAMES:
+        raise MemoryError(
+            f"watershed of a ({t}, {h}, {w}) volume: a {_MIN_CHUNK_FRAMES}-frame chunk "
+            f"with its two halo frames needs {(_MIN_CHUNK_FRAMES + 2) * per_frame} bytes, "
+            f"over the budget of {int(budget)} bytes"
+        )
+    n_chunks = -(-t // frames_cap)
+    return -(-t // n_chunks)
+
+
+def _chunk_sums(labels):
+    """Per-frame change checks of a label chunk: the sums of the labels and
+    of their squares, and the labelled count (int64, on the device)."""
+    lab = labels.to(torch.int64)
+    return torch.stack([lab.sum(dim=(1, 2)), (lab * lab).sum(dim=(1, 2)),
+                        (lab != 0).sum(dim=(1, 2))])
+
+
+def _chunked_band_radius(mask, fwd, bwd, chunk_t):
+    """The reference's full-coverage band of the chunked flood: the largest
+    in-mask rounded displacement component, at least 1 and at most 21,
+    taken a chunk of frames at a time."""
+    mx = 0
+    for s in range(0, mask.shape[0], chunk_t):
+        sl = slice(s, s + chunk_t)
+        m = torch.maximum(_round_flow(fwd[sl]).abs(), _round_flow(bwd[sl]).abs())
+        m = m.amax(dim=-1)[mask[sl]]
+        if m.numel():
+            mx = max(mx, int(m.max()))
+    return min(max(mx, 1), _BAND_CAP)
+
+
+def _watershed_time_chunked(field, markers, mask, fwd, bwd, taps, *, chunk_t,
+                            max_iters_cap, multigrid, run_scans,
+                            max_passes=_MAX_PASSES, stats=None):
+    """Block Gauss-Seidel over overlapping time chunks of ``chunk_t``
+    frames (counterpart of the reference's ``_watershed_time_chunked``).
+
+    Each chunk floods through :func:`_flood_state` with one frozen halo
+    frame per side holding the neighbouring chunk's converged (claim,
+    claim2, meta): halo frames are outside the floodable mask but push
+    through the temporal scatter-min like interior frames.  Passes
+    alternate forward and backward chunk order; a chunk is flooded again
+    only when the version of one of its halo frames changed since its last
+    flood, and a pass that changes no chunk's label sums and no boundary
+    frame ends the loop.  Everything stays on the device.  ``stats``
+    receives the round counts summed over the chunk floods, and
+    ``chunks``, ``chunk_frames``, ``chunk_passes``, ``chunk_floods`` and
+    ``chunk_skips``."""
+    t, h, w = field.shape
+    n_chunks = -(-t // chunk_t)
+    radius = _chunked_band_radius(mask, fwd, bwd, chunk_t)
+    # the labels and the boundary frames that the chunks hand each other
+    # are allocated before the floods' working memory, so that they pin
+    # none of its blocks
+    labels = torch.zeros((t, h, w), dtype=torch.int32, device=field.device)
+    bound = {  # frame -> its (claim, claim2, meta), as a neighbour's halo
+        key: (field.new_empty((h, w)), field.new_empty((h, w)),
+              markers.new_empty((h, w), dtype=torch.int32))
+        for c in range(1, n_chunks) for key in (c * chunk_t - 1, c * chunk_t)
+    }
+    have = set()  # the boundary frames stored so far
+    sums_prev = {}
+    bound_ver = {}  # frame -> version of its boundary state
+    flooded_ver = {}  # chunk -> the halo versions it last flooded with
+    floods = skips = passes = 0
+    for pass_i in range(max_passes):
+        passes += 1
+        order = range(n_chunks) if pass_i % 2 == 0 else range(n_chunks - 1, -1, -1)
+        changed_any = False
+        for ci in order:
+            s, e = ci * chunk_t, min(t, (ci + 1) * chunk_t)
+            in_ver = (bound_ver.get(s - 1, 0) if s > 0 else -1,
+                      bound_ver.get(e, 0) if e < t else -1)
+            if flooded_ver.get(ci) == in_ver:
+                skips += 1
+                continue
+            lo, hi = max(s - 1, 0), min(e + 1, t)
+            fld = torch.where(torch.isnan(field[lo:hi]), math.inf, field[lo:hi])
+            mrk = markers[lo:hi]
+            msk = mask[lo:hi].clone()
+            if s > 0:
+                msk[0] = False  # frozen boundary-condition frames
+            if e < t:
+                msk[-1] = False
+            state = _seed_state(mrk)
+            for idx, key, has in ((0, s - 1, s > 0), (-1, e, e < t)):
+                if has and key in have:
+                    for a, b in zip(state, bound[key]):
+                        a[idx] = b
+            state = _flood_state(
+                fld, mrk, msk, _round_flow(fwd[lo:hi]), _round_flow(bwd[lo:hi]), state,
+                taps, radius, max_iters=min(max_iters_cap, (hi - lo) + h + w + 32),
+                run_scans=run_scans and hi - lo >= 4, multigrid=multigrid, stats=stats,
+            )
+            floods += 1
+            i0, i1 = s - lo, e - 1 - lo
+            # this chunk's first and last interior frames are its
+            # neighbours' halo frames
+            for key, idx, has in ((s, i0, s > 0), (e - 1, i1, e < t)):
+                if not has:
+                    continue
+                new_b = tuple(a[idx] for a in state)
+                if key not in have or not all(
+                        torch.equal(x, y) for x, y in zip(new_b, bound[key])):
+                    changed_any = True
+                    bound_ver[key] = bound_ver.get(key, 0) + 1
+                for x, y in zip(bound[key], new_b):
+                    x.copy_(y)
+                have.add(key)
+            flooded_ver[ci] = in_ver
+            lab = _ws_decode(state[2], mrk, msk)[i0:i1 + 1]
+            del state
+            sums = _chunk_sums(lab)
+            if ci not in sums_prev or not torch.equal(sums, sums_prev[ci]):
+                changed_any = True
+                sums_prev[ci] = sums
+                labels[s:e] = lab
+        if not changed_any:
+            break
+    if stats is not None:
+        stats.update(chunks=n_chunks, chunk_frames=chunk_t, chunk_passes=passes,
+                     chunk_floods=floods, chunk_skips=skips)
+    return labels
+
+
 def watershed(forward_flow, backward_flow, field, markers, mask=None,
               connectivity=1, max_iters: int | None = None, multigrid: bool = True,
-              stats: dict | None = None, device=None):
+              stats: dict | None = None, budget_bytes: int | None = None, device=None):
     """Watershed segmentation of a (T, H, W) volume in the moving frame.
 
     forward_flow, backward_flow : (T, H, W, 2) flows (channel 0 = x).
@@ -440,12 +600,21 @@ def watershed(forward_flow, backward_flow, field, markers, mask=None,
     connectivity : 1..3, or an explicit (3, 3, 3) structure.
     max_iters : Jacobi round cap (default T + H + W + 32).
     multigrid : run the 4x coarse V-cycle first (when H, W >= 32).
-    stats : optional dict that receives the round counts.
+    stats : optional dict that receives the round counts (and, when the
+        flood is chunked, the chunk plan and passes).
+    budget_bytes : device bytes the flood may take beyond its inputs.  A
+        volume of at least 12 frames whose whole-volume flood would need
+        more (``FLOOD_BYTES_PER_PX`` a pixel) floods in time chunks sized
+        to fit; MemoryError where not even a 4-frame chunk fits.  ``None``
+        means :func:`~tobac_flow_tpu_torch.device.memory_budget` at the
+        call: the free memory less a margin on CUDA, no chunking on the
+        CPU.
     device : where the flood runs; the arrays (numpy or tensors) are moved
         there.  ``None`` means CUDA and raises where CUDA is not available;
         ``"cpu"`` runs the plain PyTorch version of every op.
 
-    The temporal band radius covers every in-mask rounded displacement.
+    The temporal band radius covers every in-mask rounded displacement
+    (at least 1 px when chunked, as in the reference).
 
     Returns int32 labels on ``device``.
     """
@@ -467,14 +636,28 @@ def watershed(forward_flow, backward_flow, field, markers, mask=None,
                 f"as `image` (shape {tuple(field.shape)})"
             )
     taps = _structure_taps_3d(connectivity_structure(connectivity))
+    fwd = torch.as_tensor(forward_flow).to(dev)
+    bwd = torch.as_tensor(backward_flow).to(dev)
+    temporal = any(dt != 0 for dt, _, _ in taps)
+    if field.dim() == 3 and field.shape[0] >= _MIN_CHUNKED_DEPTH and (
+            budget_bytes is not None or dev.type == "cuda"):
+        mixed = bool(torch.any(markers < 0)) and bool(torch.any(markers > 0))
+        need = field.numel() * FLOOD_BYTES_PER_PX[mixed]
+        if budget_bytes is None:
+            budget_bytes = memory_budget(dev, need)
+        if need > budget_bytes:
+            own = field.numel() * _CHUNKED_BYTES_PER_PX
+            chunk_t = chunk_frames(*field.shape, budget_bytes - own, mixed)
+            return _watershed_time_chunked(
+                field, markers, mask, fwd, bwd, taps, chunk_t=chunk_t,
+                max_iters_cap=(1 << 30) if max_iters is None else max_iters,
+                multigrid=multigrid, run_scans=temporal, stats=stats,
+            )
     if max_iters is None:
         max_iters = int(sum(field.shape)) + 32
-    field, fwd_int, bwd_int, state, exceed = _ws_prep(
-        field, markers, mask,
-        torch.as_tensor(forward_flow).to(dev), torch.as_tensor(backward_flow).to(dev),
-    )
+    field, fwd_int, bwd_int, state, exceed = _ws_prep(field, markers, mask, fwd, bwd)
     radius = _band_radius_from_stats(exceed)
-    run_scans = field.shape[0] >= 4 and any(dt != 0 for dt, _, _ in taps)
+    run_scans = field.shape[0] >= 4 and temporal
     state = _flood_state(
         field, markers, mask, fwd_int, bwd_int, state, taps, radius,
         max_iters=max_iters, run_scans=run_scans, multigrid=multigrid, stats=stats,

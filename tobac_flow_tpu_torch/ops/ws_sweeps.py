@@ -146,6 +146,7 @@ SMEM_BYTES = (2 * _CAND_ARRAYS * _CAND_LEN * 4 + 4 * HALO * HALO * 4
 SMEM_PER_SM = 233_472  # Hopper: 228 KB of shared memory per SM
 SMEM_PER_BLOCK = 232_448  # Hopper: the most one block may ask for
 _SMEM_RESERVED = 1_024  # per resident block, kept by the runtime
+_INT32_MAX = 2**31 - 1
 
 
 @lru_cache(maxsize=64)
@@ -160,6 +161,10 @@ def launch_plan(t, h, w, k, sm_count):
     tiles_y = -(-h // tile)
     tiles_x = -(-w // tile)
     n_tiles = t * tiles_y * tiles_x
+    if n_tiles > _INT32_MAX:
+        # the kernel counts tiles in 32-bit ints (its pixel offsets are 64-bit)
+        raise ValueError(f"a ({t}, {h}, {w}) volume at k={k} has {n_tiles} tiles, over "
+                         f"the kernel's {_INT32_MAX}")
     per_sm = max(1, SMEM_PER_SM // (SMEM_BYTES + _SMEM_RESERVED))
     grid = max(1, min(n_tiles, sm_count * per_sm))
     return SweepPlan(HALO, tile, tiles_y, tiles_x, n_tiles, grid, THREADS, SMEM_BYTES)

@@ -5,7 +5,11 @@ The entry points ``device_flow`` and ``fused_flow_watershed`` take numpy
 arrays or tensors, move them once to ``device`` (CUDA unless the caller
 passes ``device="cpu"``) and return tensors there; the functions below them
 run on their inputs' device.  Frame pairs, both flow directions and whole
-volumes are batch dimensions; nothing is mapped frame by frame.
+volumes are batch dimensions; nothing is mapped frame by frame.  Where
+the device memory left (``device.memory_budget``) cannot hold a stage's
+batch whole, the pairs, or the frames of the fields, run in groups sized
+to fit; each group computes its frames with the same arithmetic, so the
+results do not depend on the grouping.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 
 from tobac_flow_tpu_torch.core.flow import smooth_flow_step
-from tobac_flow_tpu_torch.device import resolve_device, stage
+from tobac_flow_tpu_torch.device import memory_budget, resolve_device, stage
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
 from tobac_flow_tpu_torch.models.variational import variational_refine
 from tobac_flow_tpu_torch.ops.banded import warp_banded_exact, warp_banded_exact_multi
@@ -49,29 +53,74 @@ def _normalise_pair(prev, nxt):
 _FLOW_CLIP = 20.0  # px, as the reference (tobac-flow's flow.py clips to ±20)
 _WS_ITERS = 128  # the fused path's Jacobi round cap
 
+# Device bytes that a stage allocates at its peak beyond its inputs,
+# rounded up: per frame pair and pixel for the flow (Farneback, both
+# directions; the detection CLI's refinement and smoothing add nothing to
+# the peak) and per frame and pixel for the fields, its outputs included.
+# The most that tools/torch_flood_memory.py measured with the whole stage
+# in one group at 6 and 12 x 1500 x 2500 and 24 x 1024 x 1536 on an H100
+# 80GB HBM3 (700 W): 880.33 and 248.00.
+FLOW_BYTES_PER_PAIR_PX = 881
+FIELDS_BYTES_PER_PX = 249
+
+
+def group_size(n, frame_px, bytes_per_px, device, group=None, reserve=0, halo=0):
+    """How many of ``n`` pairs or frames of ``frame_px`` pixels a stage
+    runs at once: ``group`` when given, else as many as
+    ``device.memory_budget`` less ``reserve`` bytes (the stage's
+    whole-volume outputs) holds at ``bytes_per_px`` with ``halo`` more
+    frames each (at least one), and all ``n`` on the CPU."""
+    if group is None:
+        per = bytes_per_px * frame_px
+        budget = memory_budget(device, reserve + (n + halo) * per)
+        group = n if budget is None else (budget - reserve) // per - halo
+    return int(max(1, min(n, group)))
+
 
 def pair_flows(data, model, vr_steps=0, smoothing_passes=0, interp_method="linear",
-               device=None):
+               device=None, group=None):
     """Forward/backward flow of a (T, H, W) stack, unclipped, on ``device``
-    (see :func:`resolve_device`): ``model`` (a pair-flow module) runs all
-    2(T-1) pair solves as one batch; each pair is then refined
-    (``vr_steps``) and smoothed (``smoothing_passes`` with
+    (see :func:`resolve_device`): ``model`` (a pair-flow module) runs the
+    pair solves of both directions as one batch of 2 x ``group`` pairs
+    (see :func:`group_size`; all 2(T-1) where they fit); each pair is then
+    refined (``vr_steps``) and smoothed (``smoothing_passes`` with
     ``interp_method``), as the reference does per pair.  The boundary
     frames take the negated opposite flow."""
     data = torch.as_tensor(data).to(resolve_device(device))
     if data.shape[0] < 2:
         raise ValueError("Need at least two frames to compute flow")
     t = data.shape[0]
-    p8, n8 = _normalise_pair(data[:-1], data[1:])
-    first, second = torch.cat([p8, n8]), torch.cat([n8, p8])
-    flows = model.to(data.device)(first, second)
-    if vr_steps > 0:
-        flows = variational_refine(first, second, flows, steps=vr_steps)
-    fwd_pairs, bwd_pairs = flows[: t - 1], flows[t - 1:]
-    for _ in range(smoothing_passes):
-        fwd_pairs, bwd_pairs = smooth_flow_step(fwd_pairs, bwd_pairs, method=interp_method)
-    fwd = torch.cat([fwd_pairs, -bwd_pairs[-1:]])
-    bwd = torch.cat([-fwd_pairs[:1], bwd_pairs])
+    model = model.to(data.device)
+    px = data[0].numel()
+    # the two (T, H, W, 2) float32 flows are allocated whole: before the
+    # groups' working memory where there are groups (so that they pin none
+    # of its blocks), after it where there is one
+    step = group_size(t - 1, px, FLOW_BYTES_PER_PAIR_PX, data.device, group, 16 * t * px)
+
+    def outputs():
+        out = torch.empty(data.shape + (2,), dtype=torch.float32, device=data.device)
+        return out, torch.empty_like(out)
+
+    fwd, bwd = outputs() if step < t - 1 else (None, None)
+    for a in range(0, t - 1, step):
+        b = min(t - 1, a + step)
+        p8, n8 = _normalise_pair(data[a:b], data[a + 1:b + 1])
+        first, second = torch.cat([p8, n8]), torch.cat([n8, p8])
+        flows = model(first, second)
+        if vr_steps > 0:
+            flows = variational_refine(first, second, flows, steps=vr_steps)
+        del first, second, p8, n8
+        fwd_pairs, bwd_pairs = flows[: b - a], flows[b - a:]
+        for _ in range(smoothing_passes):
+            fwd_pairs, bwd_pairs = smooth_flow_step(fwd_pairs, bwd_pairs,
+                                                    method=interp_method)
+        if fwd is None:
+            fwd, bwd = outputs()
+        fwd[a:b] = fwd_pairs
+        bwd[a + 1:b + 1] = bwd_pairs
+        del flows, fwd_pairs, bwd_pairs
+    fwd[-1] = -bwd[-1]
+    bwd[0] = -fwd[0]
     return fwd, bwd
 
 
@@ -117,7 +166,7 @@ def _flow_sobel_uphill(data, fwd, bwd, radius):
     return sobel_magnitude(taps, data, "uphill")
 
 
-def _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius):
+def _fields_block(bt, fwd, bwd, dt_minutes, radius):
     growth = -_flow_diff(bt, fwd, bwd, radius) / dt_minutes
     # the reference's ``/ 10.0``, as XLA compiles it: a multiply by the
     # float32 reciprocal (so the field and its thresholds match bit for bit)
@@ -125,6 +174,28 @@ def _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius):
     edges = _flow_sobel_uphill(field, fwd, bwd, radius)
     edges = torch.where(edges > 0, edges + 1.0, edges) - field
     return growth, field, edges
+
+
+def _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius, group=None):
+    """Growth, the core field and the anvil edges of a (T, H, W) stack, in
+    groups of frames (see :func:`group_size`), each computed with one
+    neighbour frame per side."""
+    t = bt.shape[0]
+    px = bt[0].numel()
+    # growth, the field and the edges are allocated whole; each group
+    # computes a neighbour frame each side
+    step = group_size(t, px, FIELDS_BYTES_PER_PX, bt.device, group, 12 * t * px, 2)
+    if step >= t:
+        return _fields_block(bt, fwd, bwd, dt_minutes, radius)
+    out = tuple(torch.empty_like(bt) for _ in range(3))
+    for a in range(0, t, step):
+        b = min(t, a + step)
+        lo, hi = max(a - 1, 0), min(b + 1, t)
+        block = _fields_block(bt[lo:hi], fwd[lo:hi], bwd[lo:hi], dt_minutes, radius)
+        for o, x in zip(out, block):
+            o[a:b] = x[a - lo:b - lo]
+        del block
+    return out
 
 
 def adaptive_band_radius(fwd, bwd):
@@ -146,7 +217,7 @@ def _fields_stage(bt, dt_minutes, params=None, stats=None):
 
 
 def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
-                         device=None):
+                         budget_bytes=None, device=None):
     """bt (T, H, W) float32 → (forward flow, growth, edges, labels), all on
     ``device``: CUDA when it is ``None`` (raising where CUDA is not
     available), the plain PyTorch versions when it is ``"cpu"``.
@@ -157,7 +228,9 @@ def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
     at each stage boundary) and Unix-clock span (see
     :func:`~tobac_flow_tpu_torch.device.stage`) and the watershed's round
     counts.  Each stage runs inside a profiler range, ``stage.flow``,
-    ``stage.fields`` and ``stage.watershed``.
+    ``stage.fields`` and ``stage.watershed``.  ``budget_bytes`` goes to
+    :func:`~tobac_flow_tpu_torch.ops.watershed.watershed`: a flood over it
+    runs in time chunks.
     """
     dev = resolve_device(device)
     bt = torch.as_tensor(bt).to(dev)
@@ -169,5 +242,5 @@ def fused_flow_watershed(bt, dt_minutes, params=None, markers=None, stats=None,
     mask = field > 0.05
     with stage("watershed", stats, dev):
         labels = watershed(fwd, bwd, edges, markers, mask=mask, max_iters=_WS_ITERS,
-                           stats=stats, device=dev)
+                           stats=stats, budget_bytes=budget_bytes, device=dev)
     return fwd, growth, edges, labels
