@@ -27,33 +27,43 @@
 7. The detection CLI's pipeline (``cli.common.run_detection``: the chain,
    ``detect.chain.run_detection``, with the CLI-default flow, cores,
    anvil markers, thick anvils, their relabelling and thin anvils; then
-   the output stages ``schema``, ``label_props`` and ``field_props``) on
-   ``tools/parity_detect.make_multistorm_scene``.  On (9, 64, 96): the
-   card's flows against the CPU's, with the CPU tests' Farneback tolerance
-   inside the storm mask on every frame the CPU reproduces from the card's
+   the output stages ``schema``, ``label_props`` and ``field_props``).  On
+   ``tools/parity_detect.make_multistorm_scene(9, 64, 96)``: the card's
+   flows against the CPU's, with the CPU tests' Farneback tolerance inside
+   the storm mask on every frame the CPU reproduces from the card's
    Farneback flows (refinement is chaotic where the flow is noise); then,
    given the same flows and with a NaN patch in WVD, the dataset built on
    the card against the CPU's (``compare_datasets``: identical but the
    float means and stds, held to the CPU tests' rtol 1e-5), every stage
    non-empty.  Then one profiled run on (6, 1024, 1536), split by the
-   stages as in 6, which also warms the path up.  Then one timed run on
-   (8, 1024, 1536), the bench frame at its full width with the depth cut
-   to 8 frames: each stage's seconds, peak memory and objects, the
-   variables, the peak memory and the kernel's launches by shape; every
-   stage finds objects.  Last, the output stages on the CPU from the run's
-   labels, timed and held to the card's dataset.
-8. The time-chunked flood.  On ``CHUNK_SMALL`` in 3 chunks, with the
+   stages as in 6, which also warms the path up.
+8. The GOES ingest's output through it.  ``goes_frames`` turns
+   ``make_multistorm_scene`` into GOES-16 MCMIP channels on the CONUS
+   fixed grid (NaN off the Earth's disk, a DQF box, a flagged row, three
+   missing frames), and the port's ingest (``data.dataloader``: masking,
+   stacking, the NaN gap frame, lat, lon and pixel area) runs on them from
+   memory, as ``goes_dataloader`` does after its file reads (no h5py).
+   On the CPU tests' small GOES scene: the card's dataset against the
+   CPU's given the same flows.  Then the CONUS-shaped run: 8 real frames
+   and 1 NaN frame of 1500x2500 through ``cli.common.run_detection`` on
+   the card, timed: each stage's seconds, peak memory and objects, the
+   kernel's launches by shape; every stage finds objects, the
+   area-weighted field statistics are finite for every object with a
+   non-NaN pixel, and the output stages on the CPU from the card's labels
+   give the card's dataset.
+9. The time-chunked flood.  On ``CHUNK_SMALL`` in 3 chunks, with the
    slice's markers and with a -1 barrier ring: the card's labels equal the
    CPU's given the same inputs.  At ``FIT_DEPTH`` frames of the standard
    job's 1500x2500 (``JOB_FRAME``), which the card floods whole: chunked
    in 3 chunks against whole, agreement at least 0.995.  Then the main
-   path, ``fused_flow_watershed``, at 1500x2500 and 1.5 times the most
+   path, ``fused_flow_watershed``, at 1500x2500 and 1.4 times the most
    frames the card floods whole (``FLOOD_BYTES_PER_PX`` against its free
    memory), in at least 3 chunks: each stage's seconds and peak, the
    chunks, passes and chunk floods, the peak memory; every marker keeps
    its label and a label crosses every chunk boundary.  Last, the kernel
    against its plain version (bit-equal) and timed at each shape class
-   these floods launched it with that 3 did not cover.
+   that the CONUS-shaped GOES run and these floods launched it with and 3
+   did not cover.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -89,7 +99,11 @@ from tobac_flow_tpu_torch import device as port_device
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
 from tobac_flow_tpu_torch.cli import common as cli
 from tobac_flow_tpu_torch.cli import dcc_detect_synthetic
-from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
+from tobac_flow_tpu_torch.data.abi import ABIProjection
+from tobac_flow_tpu_torch.data.dataloader import (
+    CHANNELS, fill_time_gap_nan, goes_geometry, mask_mcmip_frame, stack_mcmip,
+)
+from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor
 from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow
@@ -103,32 +117,26 @@ FULL = (24, 1024, 1536)
 COARSE = (24, 256, 384)  # the watershed's 4x coarse grid of FULL
 RUNS = 2
 CHAIN_SMALL = (9, 64, 96)
-# the chain's timed runs at the bench frame's full width with its depth cut
-# to 8 frames, the fewest at which every cell of the scene lives through
-# every stage (at 8 and 24 frames the stages find 24, 24, 24, 23 and 23
-# objects; at 6, 15, 5, 5, 5 and 5).  On an H100 80GB HBM3 (700 W) a run
-# took 280-293 s at 24 frames and 125-143 s at 8.  The profiled run is cut
-# to 6 frames: the profiler's processing grows with the device ops, 4.6
-# million at 6 frames (330-350 s with the run) and 6.2 million at 8.  One
-# timed run, not two, leaves the script's limit room for the time-chunked
-# flood's phases (two runs gave identical datasets in every earlier call).
-CHAIN_FULL = (8,) + FULL[1:]
+# the chain's profiled run at the bench frame's full width with its depth
+# cut to 6 frames: the profiler's processing grows with the device ops, 4.6
+# million at 6 frames (330-350 s with the run) and 6.2 million at 8.
 CHAIN_PROFILED = (6,) + FULL[1:]
-CHAIN_RUNS = 1
 CHAIN_LABELS = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
 # the stages of cli.common.run_detection: the chain's, then the output's
 CLI_STAGES = CHAIN_STAGES + cli.OUTPUT_STAGES
 # the coordinates that every stage's objects fill
 CLI_COORDS = ("core", "anvil", "core_step", "thick_anvil_step", "thin_anvil_step")
-CHAIN_COARSE = (CHAIN_FULL[0],) + COARSE[1:]
-# (shape, K) of every launch of the bench slice and the chain's timed runs:
-# the scan rounds' per-frame steps (K = 4), the in-plane part of each Jacobi
-# round's full sweep (K = 1) and its 8 kernel sweeps (K = 8), on the fine
-# and the coarse grid
+# the label volumes whose objects get field statistics
+FIELD_STAT_LABELS = (("core_label", "core"), ("thick_anvil_label", "thick_anvil"),
+                     ("thin_anvil_label", "thin_anvil"), ("core_step_label", "core_step"),
+                     ("thick_anvil_step_label", "thick_anvil_step"),
+                     ("thin_anvil_step_label", "thin_anvil_step"))
+# (shape, K) of every launch of the bench slice: the scan rounds' per-frame
+# steps (K = 4), the in-plane part of each Jacobi round's full sweep (K = 1)
+# and its 8 kernel sweeps (K = 8), on the fine and the coarse grid
 SHAPE_CLASSES = (
     ((1,) + FULL[1:], 4), ((1,) + COARSE[1:], 4),
     (FULL, 1), (FULL, 8), (COARSE, 1), (COARSE, 8),
-    (CHAIN_FULL, 1), (CHAIN_FULL, 8), (CHAIN_COARSE, 1), (CHAIN_COARSE, 8),
 )
 # the volumes the profiled chain run launches the kernel with besides
 PROFILED_SHAPES = (CHAIN_PROFILED, (CHAIN_PROFILED[0],) + COARSE[1:])
@@ -161,12 +169,47 @@ IN_PLANE[3] = IN_PLANE[2]  # connectivity 3 adds only temporal taps
 CHUNK_SMALL = (12, 48, 64)
 JOB_FRAME = (1500, 2500)
 FIT_DEPTH = 12
-DEEP_OVER_FIT = 1.5  # the deep run's depth over the most the card floods whole
+# the deep run's depth over the most the card floods whole: on an H100 80GB
+# HBM3 the budget floods 55 frames whole, and the card's whole memory would
+# flood 73 at FLOOD_BYTES_PER_PX, which the run must pass (1.4: 77 frames)
+DEEP_OVER_FIT = 1.4
 CHUNK_AGREEMENT = 0.995  # the reference's bar, chunked against whole volume
-# ws_sweeps launches of one run before the flood could run in time chunks
-# (PERF.md): the bench slice and the chain at 8 frames still flood whole
-# volumes
-WHOLE_FLOOD_LAUNCHES = {"fused_flow_watershed": 248, "run_detection": 1188}
+# ws_sweeps launches of one bench-slice run before the flood could run in
+# time chunks (PERF.md): it still floods the whole volume
+WHOLE_FLOOD_LAUNCHES = 248
+# The GOES ingest: make_multistorm_scene's frames as MCMIP channels on
+# GOES-16's fixed grid (the projection attrs of the reference's own
+# fixture, tests/test_goes_ingest_chain.py; the L2 CONUS product's first
+# pixel centres and 56 µrad steps, y decreasing), a DQF box on one frame's
+# C13, a flagged row on another frame's C08, and three consecutive
+# 5-minute frames missing, which the ingest fills with one NaN frame.
+GOES16_PROJECTION = {
+    "semi_major_axis": 6378137.0,
+    "semi_minor_axis": 6356752.31414,
+    "perspective_point_height": 35786023.0,
+    "longitude_of_projection_origin": -75.0,
+    "sweep_angle_axis": "x",
+}
+CONUS_X0, CONUS_Y0, ABI_STEP = -0.101332, 0.128212, 56e-6
+GOES_T0 = np.datetime64("2020-06-01T00:00", "ns")
+# the CONUS-shaped run: 8 real frames and 1 NaN frame of the CONUS sector.
+# The scene's cells grow over its first 7 frames and mature from the 4th:
+# on an H100 with frames 4-6 missing the cores found 2 objects, with 5-7 or
+# 6-8 the anvils none; with 7-9, 22 cores and 2 anvils.
+GOES_FULL = (11,) + JOB_FRAME
+GOES_MISSING = (7, 8, 9)
+# the CPU tests' GOES scene: the smallest tried with a gap frame at which
+# every stage finds objects (13x32x48 less frames 8-10: 2 cores, 1 anvil)
+GOES_SMALL = (13, 32, 48)
+GOES_SMALL_MISSING = (8, 9, 10)
+GOES_SMALL_ORIGIN = (1226, 734)  # the CONUS sector's centre
+GOES_DQF_FRAME, GOES_STRIPE_FRAME = 3, 4
+
+
+def goes_flags(h, w):
+    """The DQF box's (rows, columns) slices and the flagged row of a frame
+    of (h, w): rows 30-45 % and columns 25-40 %, the row at 60 %."""
+    return (slice(int(0.3 * h), int(0.45 * h)), slice(int(0.25 * w), int(0.4 * w))), int(0.6 * h)
 
 
 T_START = time.perf_counter()
@@ -587,13 +630,15 @@ def chain_fields(shape, device):
 
 
 def run_cli(fields, stats, keep=None):
-    """``cli.common.run_detection`` with ``DetectionOptions()`` on the
-    chain scene's fields.  With a dict ``keep``, the label volumes that its
-    output stages start from are also copied to the host into it (three
-    copies, outside every stage)."""
-    fields, ds = fields[0], Dataset(coords=fields[1].coords)
+    """``cli.common.run_detection`` with ``DetectionOptions()`` on
+    ``fields``: the (bt, wvd, swd) DataArrays and the output dataset, which
+    is copied.  With a dict ``keep``, the label volumes that
+    its output stages start from are also copied to the host into it
+    (three copies, outside every stage)."""
+    (bt, wvd, swd), ds = fields
+    ds = Dataset(data_vars=ds.data_vars, coords=ds.coords)
     if keep is None:
-        return cli.run_detection(*fields, ds, stats=stats)
+        return cli.run_detection(bt, wvd, swd, ds, stats=stats)
     prepare = cli.prepare_output
 
     def copy_then_prepare(dataset, *args):
@@ -604,39 +649,36 @@ def run_cli(fields, stats, keep=None):
 
     cli.prepare_output = copy_then_prepare
     try:
-        return cli.run_detection(*fields, ds, stats=stats)
+        return cli.run_detection(bt, wvd, swd, ds, stats=stats)
     finally:
         cli.prepare_output = prepare
 
 
-def check_output_stages_on_cpu(out, labels, fields, card_line):
+def check_output_stages_on_cpu(out, labels, fields, card_line, what):
     """The output stages on the CPU from the card's labels (``labels``,
     copied to the host before the card's output stages), held to the
     card's dataset ``out`` as the CPU tests hold the card."""
     (bt, wvd, swd), ds = fields
-    ds = Dataset(coords=ds.coords)
+    ds = Dataset(data_vars=ds.data_vars, coords=ds.coords)
     for name, da in labels.items():
         ds[name] = da
-    cpu_fields = [DataArray(f.data.cpu(), coords=f.coords, dims=f.dims, name=f.name,
+    cpu_fields = [DataArray(as_tensor(f).cpu(), coords=f.coords, dims=f.dims, name=f.name,
                             attrs=f.attrs) for f in (bt, wvd, swd)]
     stats = {}
     t0 = time.perf_counter()
     cpu = cli.prepare_output(ds, *cpu_fields, device="cpu", stats=stats)
     seconds = time.perf_counter() - t0
     worst = compare_datasets(cpu, out)
-    log(f"chain {CHAIN_FULL}: the output stages on the CPU from the card's labels take "
+    log(f"{what}: the output stages on the CPU from the card's labels take "
         f"{seconds:.3f} s (" + ", ".join(f"{n} {stats[n + '_s']:.3f} s"
                                            for n in cli.OUTPUT_STAGES)
         + f") and give the card's dataset: float32 means and stds within {worst:.3g}, "
         f"the rest identical [{card_line}, {torch.get_num_threads()} CPU threads]")
 
 
-def run_chain_full(device, card_line):
+def profile_chain(device, card_line):
     """``cli.common.run_detection``'s profiled run at CHAIN_PROFILED, which
-    also warms it up, then CHAIN_RUNS timed runs at CHAIN_FULL (the
-    kernel's counts reset just before each and read just after), the last
-    also checked against the output stages on the CPU.  Returns (launches
-    per run, launches by shape, profiled sweep ms, profiled sweep
+    also warms the path up.  Returns (profiled sweep ms, profiled sweep
     launches)."""
     fields = chain_fields(CHAIN_PROFILED, device)
 
@@ -645,54 +687,178 @@ def run_chain_full(device, card_line):
         run_cli(fields, stats)
         return stats
 
-    profiled = profile_run(profiled_run, CLI_STAGES, card_line,
-                           f"cli.run_detection {CHAIN_PROFILED}")
-    del fields
-    fields = chain_fields(CHAIN_FULL, device)
-    first = None
-    for run in range(1, CHAIN_RUNS + 1):
-        gc.collect()
-        torch.cuda.synchronize()
-        port_device.reset_peak_memory(device)
-        resident = torch.cuda.memory_allocated()
-        stats, labels = {}, ({} if run == CHAIN_RUNS else None)
-        reset_counts()
-        t0 = time.perf_counter()
-        out = run_cli(fields, stats, labels)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches, by_shape = read_counts()
-        peak = port_device.peak_memory(device)
-        if launches == 0:
-            raise AssertionError("chain: the ws_sweeps kernel was never launched")
-        empty = [name for name in CHAIN_STAGES[1:] if stats[name + "_n"] == 0]
-        empty += [c for c in CLI_COORDS if out.coords[c].size == 0]
-        if empty:
-            raise AssertionError(f"chain run {run}: no objects in {empty}")
-        for name, da in out.data_vars.items():
-            if da.dtype.kind == "f" and name.endswith("_mean") and np.isnan(da.values).all():
-                raise AssertionError(f"chain run {run}: {name} is NaN for every object")
-        if first is None:
-            first = out
-        else:
-            compare_datasets(first, out, rtol32=0.0, rtol64=0.0)
-        log(f"chain {CHAIN_FULL} run {run} through cli.run_detection [{card_line}]: "
-            f"{seconds:.3f} s; " + ", ".join(
-                f"{name} {stats[name + '_s']:.3f} s" for name in CLI_STAGES) + "; objects "
-            + ", ".join(f"{name} {stats[name + '_n']}" for name in CHAIN_STAGES[1:])
-            + f"; {len(out.data_vars)} variables, " + ", ".join(
-                f"{c} {out.coords[c].size}" for c in CLI_COORDS)
-            + "; stage peaks " + ", ".join(
-                f"{name} {stats[name + '_peak_bytes'] / 2**30:.3f} GiB" for name in CLI_STAGES)
-            + f"; kernel launches {launches} (before time chunks: "
-            f"{WHOLE_FLOOD_LAUNCHES['run_detection']}) "
-            f"{by_shape}; device memory resident at start "
-            f"{resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
-        del out
-    if CHAIN_RUNS > 1:
-        log("chain: the runs give equal datasets, every variable identical")
-    check_output_stages_on_cpu(first, labels, fields, card_line)
-    return launches, by_shape, *profiled
+    return profile_run(profiled_run, CLI_STAGES, card_line,
+                       f"cli.run_detection {CHAIN_PROFILED}")
+
+
+def goes_frames(shape, missing, origin=(0, 0)):
+    """``make_multistorm_scene(*shape)`` as the MCMIP frames of a GOES-16
+    window whose top-left pixel is ``origin`` (x, y) in the CONUS sector,
+    as the reference's own fixture turns fields into channels: C13 = bt,
+    C10 = 240 K, C08 = wvd + C10, C15 = bt - swd, and NaN off the Earth's
+    disk, as the product's fill values read.  Frame GOES_DQF_FRAME has a
+    DQF box on C13, frame GOES_STRIPE_FRAME a flagged row on C08 (see
+    ``goes_flags``), and the frames ``missing`` are left out.  Returns (times, frames, x, y): the
+    frames as (channels, dqfs) per time, as ``read_mcmip_frame`` gives
+    them, and the window's scan angles."""
+    t, h, w = shape
+    x = CONUS_X0 + (origin[0] + np.arange(w)) * ABI_STEP
+    y = CONUS_Y0 - (origin[1] + np.arange(h)) * ABI_STEP
+    off_disk = np.isnan(ABIProjection(**GOES16_PROJECTION).to_latlon(*np.meshgrid(x, y))[0])
+    bt, wvd, swd = make_multistorm_scene(t, h, w)
+    for field in (bt, wvd, swd):
+        field[:, off_disk] = np.nan
+    times = GOES_T0 + np.arange(t) * np.timedelta64(300, "s")
+    c10 = np.full((h, w), 240.0, np.float32)
+    zeros = np.zeros((h, w), np.float32)
+    box, row = goes_flags(h, w)
+    out_times, frames = [], []
+    for i in range(t):
+        if i in missing:
+            continue
+        channels = {"C13": bt[i], "C10": c10, "C08": (wvd[i] + c10).astype(np.float32),
+                    "C15": (bt[i] - swd[i]).astype(np.float32)}
+        dqfs = dict.fromkeys(CHANNELS, zeros)
+        if i == GOES_DQF_FRAME:
+            dqfs["C13"] = zeros.copy()
+            dqfs["C13"][box] = 1
+        if i == GOES_STRIPE_FRAME:
+            dqfs["C08"] = zeros.copy()
+            dqfs["C08"][row] = 1
+        out_times.append(times[i])
+        frames.append((channels, dqfs))
+    return out_times, frames, x, y
+
+
+def goes_ingest(times, frames, x, y):
+    """The port's ingest of in-memory MCMIP frames, as ``goes_dataloader``
+    runs it after its file reads: each frame masked, the stack sorted in
+    time, each gap over 15 minutes filled with a NaN frame, and the output
+    dataset with the projection, lat, lon and pixel area.  Returns
+    ((bt, wvd, swd), dataset)."""
+    masked = [mask_mcmip_frame(channels, dqfs) for channels, dqfs in frames]
+    fields = [fill_time_gap_nan(da) for da in stack_mcmip(times, masked, x, y)]
+    return fields, goes_geometry(fields[0].coords, GOES16_PROJECTION)
+
+
+def check_field_stats(out, fields, what):
+    """The area-weighted field statistics are finite for every object with
+    a non-NaN pixel of the field, and NaN for every other label number.
+    Returns the number of (object, field) pairs checked."""
+    checked = 0
+    for label_name, name in FIELD_STAT_LABELS:
+        labels = out[label_name].values.ravel()
+        for field in fields:
+            counts = np.bincount(labels[np.isfinite(field.values.ravel()) & (labels > 0)],
+                                 minlength=int(labels.max()) + 1)[1:]
+            for stat in ("mean", "std", "max", "min"):
+                finite = np.isfinite(out[f"{name}_{field.name}_{stat}"].values)
+                if not np.array_equal(finite, counts > 0):
+                    raise AssertionError(f"{what}: {name}_{field.name}_{stat} is finite for "
+                                         f"{int(finite.sum())} labels, {int((counts > 0).sum())} "
+                                         f"have non-NaN pixels")
+            checked += int((counts > 0).sum())
+    return checked
+
+
+def check_goes_small(device, card_line):
+    """``cli.common.run_detection`` on the card against the CPU on the CPU
+    tests' GOES scene (GOES_SMALL less GOES_SMALL_MISSING, with its NaN
+    frame, masks and area weights), given the same (the card's) flows: the
+    same dataset, as ``check_chain_small`` holds the synthetic scene, and
+    no stage empty."""
+    fields, ds = goes_ingest(*goes_frames(GOES_SMALL, GOES_SMALL_MISSING, GOES_SMALL_ORIGIN))
+    flow = create_flow(fields[0].values, vr_steps=1, smoothing_passes=1, interp_method="cubic")
+    if flow.device.type != device.type:
+        raise AssertionError(f"create_flow ran on {flow.device}, not on the card")
+    out = {}
+    for where, given in (("card", flow), ("cpu", Flow(flow.forward_flow.cpu(),
+                                                       flow.backward_flow.cpu()))):
+        opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
+                                flow_factory=lambda _, given=given: given)
+        out[where] = cli.run_detection(*fields, Dataset(data_vars=ds.data_vars, coords=ds.coords),
+                                       opts=opts, device=None if where == "card" else "cpu")
+    counts = {name: int(out["cpu"][name].values.max()) for name in CHAIN_LABELS}
+    if min(counts.values()) == 0 or min(out["cpu"].coords[c].size for c in CLI_COORDS) == 0:
+        raise AssertionError(f"GOES small: an empty stage: {counts}")
+    worst = compare_datasets(out["cpu"], out["card"])
+    checked = check_field_stats(out["card"], fields, "GOES small")
+    log(f"GOES small {fields[0].shape} (from {GOES_SMALL} less frames {GOES_SMALL_MISSING}): "
+        f"cli.run_detection on the card gives the CPU's dataset given the same flows "
+        f"({len(out['cpu'].data_vars)} variables; float32 means and stds within {worst:.3g}, "
+        f"the rest identical); objects {counts}; area-weighted statistics finite for the "
+        f"{checked} (object, field) pairs with non-NaN pixels")
+
+
+def run_goes(device, card_line):
+    """The CONUS-shaped GOES run: GOES_FULL less GOES_MISSING through the
+    port's ingest (8 real frames and 1 NaN frame of 1500x2500, DQF-masked
+    pixels, lat, lon and pixel areas), then ``cli.common.run_detection``
+    with ``DetectionOptions()`` on the card, timed, with the kernel's counts
+    reset just before it and read just after.  Every stage finds objects,
+    the area-weighted statistics are finite for every object with non-NaN
+    pixels, and the output stages on the CPU from the card's labels give
+    the card's dataset.  Returns (launches, launches by shape)."""
+    t0 = time.perf_counter()
+    times, frames, x, y = goes_frames(GOES_FULL, GOES_MISSING)
+    t1 = time.perf_counter()
+    fields, ds = goes_ingest(times, frames, x, y)
+    del frames
+    t2 = time.perf_counter()
+    bt = fields[0].values
+    nan_px = [int(np.isnan(f.values).sum()) for f in fields]
+    nan_frames = [i for i in range(bt.shape[0]) if np.isnan(bt[i]).all()]
+    area = ds["area"].values
+    off_disk = np.isnan(area)
+    log(f"GOES scene {GOES_FULL} less frames {GOES_MISSING}: made on the host in "
+        f"{t1 - t0:.1f} s, through the port's ingest (mask, stack, NaN gap fill, geometry) in "
+        f"{t2 - t1:.1f} s: {bt.shape}, NaN frames {nan_frames}, NaN pixels (bt, wvd, swd) "
+        f"{nan_px}, off the disk {int(off_disk.sum())} pixels, times "
+        f"{str(fields[0].coords['t'][0])[:19]} .. {str(fields[0].coords['t'][-1])[:19]}, lat "
+        f"{np.nanmin(ds['lat'].values):.3f} .. {np.nanmax(ds['lat'].values):.3f}, pixel area "
+        f"{np.nanmin(area):.3f} .. {np.nanmax(area):.3f} km^2")
+    box, row = goes_flags(*bt.shape[1:])
+    flagged = all(np.isnan(f.values[GOES_DQF_FRAME][box]).all()
+                  and np.isnan(f.values[GOES_STRIPE_FRAME, row]).all() for f in fields)
+    if (nan_frames != [GOES_MISSING[0]] or not flagged or not np.isnan(bt[:, off_disk]).all()
+            or not np.array_equal(off_disk, np.isnan(ds["lat"].values))):
+        raise AssertionError(f"GOES scene: NaN frames {nan_frames}, NaN pixels {nan_px}, "
+                             f"flags masked {flagged}, {int(off_disk.sum())} pixels off the disk")
+    gc.collect()
+    torch.cuda.synchronize()
+    port_device.reset_peak_memory(device)
+    resident = torch.cuda.memory_allocated()
+    stats, labels = {}, {}
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_cli((fields, ds), stats, labels)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_shape = read_counts()
+    peak = port_device.peak_memory(device)
+    what = f"GOES {bt.shape}"
+    if launches == 0:
+        raise AssertionError(f"{what}: the ws_sweeps kernel was never launched")
+    empty = [name for name in CHAIN_STAGES[1:] if stats[name + "_n"] == 0]
+    empty += [c for c in CLI_COORDS if out.coords[c].size == 0]
+    if empty:
+        raise AssertionError(f"{what}: no objects in {empty}")
+    checked = check_field_stats(out, fields, what)
+    px = float(np.prod(bt.shape))
+    log(f"{what} through cli.run_detection [{card_line}]: {seconds:.3f} s; " + ", ".join(
+            f"{name} {stats[name + '_s']:.3f} s" for name in CLI_STAGES) + "; objects "
+        + ", ".join(f"{name} {stats[name + '_n']}" for name in CHAIN_STAGES[1:])
+        + f"; {len(out.data_vars)} variables, " + ", ".join(
+            f"{c} {out.coords[c].size}" for c in CLI_COORDS)
+        + "; stage peaks " + ", ".join(
+            f"{name} {stats[name + '_peak_bytes'] / 2**30:.3f} GiB "
+            f"({(stats[name + '_peak_bytes'] - resident) / px:.1f} B/px over the run's start)"
+            for name in CLI_STAGES)
+        + f"; area-weighted statistics finite for the {checked} (object, field) pairs with "
+        f"non-NaN pixels; kernel launches {launches} {by_shape}; device memory resident at "
+        f"start {resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
+    check_output_stages_on_cpu(out, labels, (fields, ds), card_line, what)
+    return launches, by_shape
 
 
 def job_scene(t, h, w, threads=8):
@@ -1025,8 +1191,7 @@ def main():
             f"{stats['flow_s']:.3f} s, fields {stats['fields_s']:.3f} s, watershed "
             f"{stats['watershed_s']:.3f} s; stage peaks " + ", ".join(
                 f"{name} {stats[name + '_peak_bytes'] / 2**30:.3f} GiB" for name in STAGES)
-            + f"; kernel launches {launches} (before time chunks: "
-            f"{WHOLE_FLOOD_LAUNCHES['fused_flow_watershed']}); "
+            + f"; kernel launches {launches} (before time chunks: {WHOLE_FLOOD_LAUNCHES}); "
             f"device memory resident at start {resident / 2**30:.3f} GiB, peak "
             f"{peak / 2**30:.3f} GiB")
         del fwd, growth, edges, labels
@@ -1052,23 +1217,22 @@ def main():
                                                  "the bench slice")
     del bt_dev, first
 
-    # the detection chain: card against CPU on a small scene, then the full
-    # scene through the kernel
+    # the detection chain: card against CPU on a small scene and its profile
+    # at the bench frame; then the GOES ingest's output through it, card
+    # against CPU on a small scene and timed on the CONUS-shaped scene
     check_chain_small(device, card_line)
-    chain_launches, chain_by_shape, chain_profiled_ms, chain_profiled_launches = (
-        run_chain_full(device, card_line))
-    unknown = set(chain_by_shape) - set(per_shape)
-    if unknown:
-        raise AssertionError(f"the chain launched the kernel at untimed shapes {sorted(unknown)}")
+    chain_profiled_ms, chain_profiled_launches = profile_chain(device, card_line)
+    check_goes_small(device, card_line)
+    goes_launches, goes_by_shape = run_goes(device, card_line)
 
     # the time-chunked flood: card against CPU, chunked against whole at
     # the job's frame, then the main path past what the card floods whole
     check_chunked_small(device, card_line)
     fit_by_shape = run_chunked_fit(device, card_line)
     deep_launches, deep_by_shape = run_deep(device, card_line)
-    worst = max(worst, check_and_time_new_shapes({**fit_by_shape, **deep_by_shape}, per_shape,
-                                                 device, card_line))
-    paths = {"fused_flow_watershed": by_shape, "run_detection": chain_by_shape,
+    worst = max(worst, check_and_time_new_shapes(
+        {**goes_by_shape, **fit_by_shape, **deep_by_shape}, per_shape, device, card_line))
+    paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape}
 
     for key, row in per_shape.items():
@@ -1088,15 +1252,15 @@ def main():
 
     print(json.dumps({"kernels": [{
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches + chain_launches + deep_launches,
+        "replaces": KERNEL_REPLACES, "launches": launches + goes_launches + deep_launches,
         "max_abs_err": worst,
         "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
         "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
-        "per": "one run of each main path (the bench slice, the detection chain and the "
-               "deep time-chunked slice): the sum over its launches_by_shape of launches x "
-               "ms per launch, with the inputs cold in L2",
+        "per": "one run of each main path (the bench slice, the detection of the "
+               "CONUS-shaped GOES scene and the deep time-chunked slice): the sum over its "
+               "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},
         "ms_by_path": {p: per_run("ms", c) for p, c in paths.items()},
         "plain_ms_by_path": {p: per_run("plain_ms", c) for p, c in paths.items()},

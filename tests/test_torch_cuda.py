@@ -11,7 +11,11 @@ import scipy.ndimage as ndi
 import torch
 
 from bench import make_markers, make_scene
-from chip_smoke import IN_PLANE, compare_datasets, sweep_inputs
+from chip_smoke import (
+    GOES_SMALL, GOES_SMALL_MISSING, GOES_SMALL_ORIGIN, IN_PLANE, compare_datasets, goes_frames,
+    goes_ingest, sweep_inputs,
+)
+from tobac_flow_tpu_torch.cli import common
 from tobac_flow_tpu_torch.cli.common import DetectionOptions, prepare_output
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
@@ -168,6 +172,29 @@ def test_output_stages_on_card_equal_cpu(cuda):
         assert {"schema_s", "label_props_s", "field_props_s"} <= set(stats)
     assert out["cpu"].coords["core"].size > 0 and out["cpu"].coords["anvil"].size > 0
     assert out["cpu"]["core_nan_flag"].values.dtype == bool
+    compare_datasets(out["cpu"], out["cuda"])
+
+
+def test_goes_detection_on_card_equals_cpu(cuda):
+    """The small GOES scene of the CPU tests (a NaN gap frame, DQF-masked
+    pixels, pixel-area weights) through ``cli.common.run_detection`` on the
+    card and on the CPU, given the same (the card's) flows: the same
+    dataset, float means and stds within the CPU tests' tolerance, and
+    every stage non-empty."""
+    fields, ds = goes_ingest(*goes_frames(GOES_SMALL, GOES_SMALL_MISSING, GOES_SMALL_ORIGIN))
+    assert np.isnan(fields[0].values[GOES_SMALL_MISSING[0]]).all() and "area" in ds
+    flow = create_flow(fields[0].values, vr_steps=1, smoothing_passes=1, interp_method="cubic")
+    assert flow.device.type == "cuda"
+    out = {}
+    for device, given in (("cuda", flow), ("cpu", Flow(flow.forward_flow.cpu(),
+                                                       flow.backward_flow.cpu()))):
+        opts = DetectionOptions(save_anvil_markers=True,
+                                flow_factory=lambda _, given=given: given)
+        out[device] = common.run_detection(*fields, Dataset(data_vars=ds.data_vars,
+                                                            coords=ds.coords),
+                                           opts=opts, device=device)
+    for name in ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label"):
+        assert int(out["cpu"][name].values.max()) > 0, name
     compare_datasets(out["cpu"], out["cuda"])
 
 

@@ -16,7 +16,8 @@ PORT = Path(__file__).resolve().parent.parent / "tobac_flow_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "tobac_flow_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] + [
     PORT.parent / "tools" / name
-    for name in ("torch_flood_memory.py", "torch_chunked_fixed_point.py")]
+    for name in ("torch_flood_memory.py", "torch_chunked_fixed_point.py",
+                 "torch_goes_probe.py")]
 
 
 def _imported_roots(tree):
@@ -102,8 +103,12 @@ def test_scan_sees_the_package():
             "core/flow.py", "models/variational.py", "segment/label.py",
             "detect/fused.py", "detect/detection.py", "detect/chain.py",
             "utils/labels.py", "utils/stats.py", "data/ncdataset.py", "schema/dataset.py",
-            "cli/common.py", "cli/dcc_detect_synthetic.py", "device.py"} <= names
+            "cli/common.py", "cli/dcc_detect_synthetic.py", "device.py",
+            "utils/datetime_utils.py", "utils/geo.py", "data/abi.py", "data/io.py",
+            "data/dataloader.py", "data/dataset_utils.py", "cli/dcc_detect_goes.py"} <= names
     # the time-chunked flood and the grouped stages live in these modules
     assert "_watershed_time_chunked" in (PORT / "ops" / "watershed.py").read_text()
     assert "group_size" in (PORT / "pipeline.py").read_text()
+    # the GOES ingest's output dataset
+    assert "def create_new_goes_ds" in (PORT / "schema" / "dataset.py").read_text()
     assert "tobac_flow_tpu" in set(_imported_roots(ast.parse("import tobac_flow_tpu.ops")))

@@ -1,4 +1,5 @@
 from tobac_flow_tpu_torch.schema.dataset import (  # noqa: F401
+    create_new_goes_ds,
     add_step_labels,
     add_label_coords,
     link_cores_and_anvils,

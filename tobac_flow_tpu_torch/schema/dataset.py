@@ -1,7 +1,7 @@
 """Output-dataset schema: label coordinates, linking indices, flags and
 per-object properties (counterpart of the parts of
-``tobac_flow_tpu/schema/dataset.py`` that ``run_detection`` calls, with
-its names, dims, dtypes and attrs).
+``tobac_flow_tpu/schema/dataset.py`` that ``run_detection`` and the GOES
+ingest call, with its names, dims, dtypes and attrs).
 
 The label volumes and fields stay where the dataset holds them (tensors
 on the card, or numpy on the CPU); every per-label quantity is a
@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tobac_flow_tpu_torch.data.abi import get_abi_lat_lon, get_abi_pixel_area
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor
 from tobac_flow_tpu_torch.ops.morphology import binary_dilation
 from tobac_flow_tpu_torch.utils.datetime_utils import get_datetime_from_coord
@@ -25,6 +26,7 @@ from tobac_flow_tpu_torch.utils.labels import (
 from tobac_flow_tpu_torch.utils.stats import find_overlap_mode
 
 __all__ = [
+    "create_new_goes_ds",
     "add_step_labels",
     "add_label_coords",
     "link_cores_and_anvils",
@@ -53,6 +55,28 @@ def _contains(label_values, *volumes):
     the tensors ``volumes``?"""
     found = unique_labels(torch.cat([v.reshape(-1) for v in volumes]))
     return np.isin(label_values, found)
+
+
+def create_new_goes_ds(goes_ds):
+    """A fresh output dataset carrying the source grid's coords, projection
+    and the float32 lat, lon and pixel area (km²) derived from it."""
+    new_ds = Dataset(
+        coords={
+            k: goes_ds.coords[k]
+            for k in ("t", "y", "x", "y_image", "x_image")
+            if k in goes_ds.coords
+        }
+    )
+    if "goes_imager_projection" in goes_ds:
+        new_ds["goes_imager_projection"] = goes_ds["goes_imager_projection"]
+        lat, lon = get_abi_lat_lon(new_ds)
+        _add(new_ds, "lat", lat, ("y", "x"), long_name="latitude", dtype=np.float32)
+        _add(new_ds, "lon", lon, ("y", "x"), long_name="longitude", dtype=np.float32)
+        _add(
+            new_ds, "area", get_abi_pixel_area(new_ds), ("y", "x"),
+            long_name="pixel area", units="km^2", dtype=np.float32,
+        )
+    return new_ds
 
 
 # -- step labels / label coords ----------------------------------------------
