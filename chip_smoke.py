@@ -86,6 +86,7 @@ import bisect
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -104,8 +105,10 @@ from tobac_flow_tpu_torch.data.dataloader import (
     CHANNELS, fill_time_gap_nan, goes_geometry, mask_mcmip_frame, stack_mcmip,
 )
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor
+from tobac_flow_tpu_torch.detect import chain as chain_mod
 from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions
+from tobac_flow_tpu_torch.detect.detection import detect_cores, get_anvil_markers
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow
 from tobac_flow_tpu_torch.ops import watershed as ws
 from tobac_flow_tpu_torch.ops import ws_sweeps
@@ -118,9 +121,10 @@ COARSE = (24, 256, 384)  # the watershed's 4x coarse grid of FULL
 RUNS = 2
 CHAIN_SMALL = (9, 64, 96)
 # the chain's profiled run at the bench frame's full width with its depth
-# cut to 6 frames: the profiler's processing grows with the device ops, 4.6
-# million at 6 frames (330-350 s with the run) and 6.2 million at 8.
-CHAIN_PROFILED = (6,) + FULL[1:]
+# cut to 5 frames: the profiler's processing grows with the device ops, 4.6
+# million at 6 frames (243 s with the run on an H100 80GB HBM3, 700 W) and
+# 6.2 million at 8; the script's time limit leaves room for 5.
+CHAIN_PROFILED = (5,) + FULL[1:]
 CHAIN_LABELS = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
 # the stages of cli.common.run_detection: the chain's, then the output's
 CLI_STAGES = CHAIN_STAGES + cli.OUTPUT_STAGES
@@ -522,7 +526,9 @@ def check_chain_small(device, card_line):
     card's Farneback flows.  Given the same flows, the datasets (labels of
     every stage, anvil markers and spatial properties included) are the
     same: identical but the float means and stds, which are held to the
-    CPU tests' tolerance; and no stage is empty."""
+    CPU tests' tolerance; and no stage is empty.  Returns the scene (its
+    fields with the NaN patch and times), the card's flow and the card's
+    dataset."""
     opts = DetectionOptions()
     bt, wvd, swd = make_multistorm_scene(*CHAIN_SMALL)
     times = chain_times(CHAIN_SMALL[0])
@@ -567,6 +573,7 @@ def check_chain_small(device, card_line):
     log(f"chain small {CHAIN_SMALL}: cli.run_detection on the card gives the CPU's dataset "
         f"given the same flows ({len(out['cpu'].data_vars)} variables; float32 means and "
         f"stds within {worst:.3g}, the rest identical); objects {counts}")
+    return (bt, wvd, swd, times), gpu, out["card"]
 
 
 # netCDF's own attributes of a variable read from a file
@@ -798,7 +805,10 @@ def run_goes(device, card_line):
     reset just before it and read just after.  Every stage finds objects,
     the area-weighted statistics are finite for every object with non-NaN
     pixels, and the output stages on the CPU from the card's labels give
-    the card's dataset.  Returns (launches, launches by shape)."""
+    the card's dataset.  Returns (launches, launches by shape, the run's
+    record for ``check_chunked_goes``: the chain's stage calls and floods
+    (``recorded_stages``), its dataset, the label volumes its output stages
+    started from, its fields and output dataset)."""
     t0 = time.perf_counter()
     times, frames, x, y = goes_frames(GOES_FULL, GOES_MISSING)
     t1 = time.perf_counter()
@@ -829,9 +839,11 @@ def run_goes(device, card_line):
     port_device.reset_peak_memory(device)
     resident = torch.cuda.memory_allocated()
     stats, labels = {}, {}
+    calls, floods = [], []
     reset_counts()
     t0 = time.perf_counter()
-    out = run_cli((fields, ds), stats, labels)
+    with recorded_stages(calls, floods):
+        out = run_cli((fields, ds), stats, labels)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, by_shape = read_counts()
@@ -858,7 +870,8 @@ def run_goes(device, card_line):
         f"non-NaN pixels; kernel launches {launches} {by_shape}; device memory resident at "
         f"start {resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB")
     check_output_stages_on_cpu(out, labels, (fields, ds), card_line, what)
-    return launches, by_shape
+    return launches, by_shape, dict(calls=calls, floods=floods, out=out, labels=labels,
+                                    fields=fields, ds=ds)
 
 
 def job_scene(t, h, w, threads=8):
@@ -1093,6 +1106,341 @@ def run_deep(device, card_line):
     return launches, by_shape
 
 
+# The chain's stages in time chunks.  Each chain stage's budget gives its
+# largest step 4-frame chunks (3 chunks of 3 frames at 9 frames): the
+# step's bytes per pixel, halo frames and whole-volume output bytes per
+# pixel (device.py).
+STAGE_STEPS = {
+    "detect_cores": (port_device.CORE_MARKERS_BYTES_PER_PX, 1, 1),
+    "anvil_markers": (port_device.LINK_BYTES_PER_PX, 1, 4),
+    "thick_anvils": (port_device.ANVIL_PRE_BYTES_PER_PX, 2, 8),
+    "relabel_anvils": (port_device.LINK_BYTES_PER_PX, 1, 4),
+    "thin_anvils": (port_device.ANVIL_PRE_BYTES_PER_PX, 2, 8),
+    "output": (port_device.OUTPUT_BYTES_PER_PX, 0, 0),
+}
+CHUNK_CAP = 4  # frames a forced chunk holds at most
+# the deep phase's depth over the most frames detect_cores holds whole in
+# the card's own budget (CORE_MARKERS_BYTES_PER_PX): past the card's total
+DEEP_CORES_OVER_FIT = 1.25
+
+
+def stage_budget(name, shape, frames=CHUNK_CAP):
+    """A ``budget_bytes`` under which the chain stage ``name`` runs its
+    largest step over ``shape`` in chunks of at most ``frames``."""
+    per_px, halo, out_px = STAGE_STEPS[name]
+    t, h, w = shape
+    return (frames + 2 * halo) * per_px * h * w + out_px * t * h * w
+
+
+def _host(x, device=None):
+    """``x`` with its tensors (and a ``Flow``'s flows) on the host, or on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu() if device is None else x.to(device)
+    if isinstance(x, Flow):
+        return Flow(_host(x.forward_flow, device), _host(x.backward_flow, device))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_host(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: _host(v, device) for k, v in x.items()}
+    return x
+
+
+class recorded_stages:
+    """Within it, each call of the chain's ``detect_cores``,
+    ``get_anvil_markers``, ``detect_anvils`` and ``relabel_anvils`` is
+    appended to ``calls`` as (function name, host copies of its
+    arguments, keyword arguments, its labels on the host), and each flood
+    to ``floods`` as host copies of (field, markers, labels).  A ``Flow``
+    argument is kept as a host copy (``_host``), so that the card frees
+    it when the chain ends."""
+
+    NAMES = ("detect_cores", "get_anvil_markers", "detect_anvils", "relabel_anvils")
+
+    def __init__(self, calls, floods):
+        self.calls, self.floods, self.flows = calls, floods, {}
+
+    def __enter__(self):
+        self.saved = {n: getattr(chain_mod, n) for n in self.NAMES}
+        self.saved_ws = ws.watershed
+        for name, fn in self.saved.items():
+            def wrapped(flow, *args, _fn=fn, _name=name, **kwargs):
+                result = _fn(flow, *args, **kwargs)
+                if id(flow) not in self.flows:  # one host copy of the run's flow
+                    self.flows[id(flow)] = _host(flow)
+                self.calls.append((_name, (self.flows[id(flow)],) + _host(args), _host(kwargs),
+                                   result.cpu()))
+                return result
+            setattr(chain_mod, name, wrapped)
+
+        def flood(*args, **kwargs):
+            result = self.saved_ws(*args, **kwargs)
+            self.floods.append((args[2].cpu(), args[3].cpu(), result.cpu()))
+            return result
+        ws.watershed = flood
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(chain_mod, name, fn)
+        ws.watershed = self.saved_ws
+
+
+def bits_equal(a, b):
+    """Equal bit for bit (NaN payloads and signed zeros included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+class replayed_floods:
+    """Within it, ``ops.watershed.watershed`` returns the recorded flood
+    whose field and markers equal its own, and raises where none does."""
+
+    def __init__(self, floods):
+        self.floods = floods
+
+    def __enter__(self):
+        self.saved = ws.watershed
+
+        def flood(fwd, bwd, field, markers, *args, device=None, **kwargs):
+            for f, m, labels in self.floods:
+                if bits_equal(field.cpu(), f) and torch.equal(markers.cpu(), m):
+                    return labels.to(device)
+            raise AssertionError("a chunked stage's flood inputs differ from the whole run's")
+        ws.watershed = flood
+        return self
+
+    def __exit__(self, *exc):
+        ws.watershed = self.saved
+
+
+def check_chunked_chain_small(small, card_line):
+    """``cli.common.run_detection`` on the card at CHAIN_SMALL under a
+    budget that forces the anvil stages into 4-frame chunks (3 chunks),
+    given the card's flow, against ``check_chain_small``'s whole run on
+    the card (``small``: its fields, flow and dataset): identical
+    datasets, anvil markers included; the floods stay whole at 9 frames.
+    Returns the chunked run's launches by shape."""
+    (bt, wvd, swd, times), flow, whole = small
+    fields, ds = chain_inputs(bt, wvd, swd, times)
+    opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
+                            flow_factory=lambda _: flow)
+    stats = {}
+    reset_counts()
+    out = cli.run_detection(*fields, ds, opts=opts, stats=stats,
+                            budget_bytes=stage_budget("thick_anvils", CHAIN_SMALL))
+    launches, by_shape = read_counts()
+    if (stats["thick_anvils_chunks"] < 3 or stats["thin_anvils_chunks"] < 3 or launches == 0
+            or stats["thick_anvils_flood_chunks"] != 1):
+        raise AssertionError(f"chunked chain small: chunks {chunk_counts(stats)}, "
+                             f"{launches} launches")
+    worst = compare_datasets(whole, out)
+    log(f"chunked chain {CHAIN_SMALL} on the card [{card_line}]: cli.run_detection under a "
+        f"4-frame budget gives the whole run's dataset ({len(whole.data_vars)} variables; "
+        f"float32 means and stds within {worst:.3g}, the rest identical); chunks (stage: "
+        f"chunks, fewest frames) {chunk_counts(stats)}; {launches} kernel launches")
+    return by_shape
+
+
+def chunk_counts(stats):
+    return {n: (stats.get(f"{n}_chunks"), stats.get(f"{n}_chunk_frames"))
+            for n in CLI_STAGES[1:] if f"{n}_chunks" in stats}
+
+
+def check_chunked_goes(record, device, card_line):
+    """Every chunked stage at the CONUS-shaped GOES run's 9x1500x2500,
+    teacher-forced with that run's flow, stage inputs and flood outputs
+    (``recorded_stages``), each under a budget that forces its largest
+    step into 3 chunks (``stage_budget``), its inputs (but the flow, which
+    returns to the card) waiting on the host:
+    each stage's labels identical to the run's own; then the output stages
+    under their budget give the run's dataset (``compare_datasets``)."""
+    stage_of = iter(("detect_cores", "anvil_markers", "thick_anvils", "relabel_anvils",
+                     "thin_anvils"))
+    done, flow = [], None
+    with replayed_floods(record["floods"]):
+        for fn_name, args, kwargs, want in record["calls"]:
+            name = next(stage_of)
+            shape = tuple(want.shape)
+            budget = stage_budget(name, shape)
+            stats = {}
+            gc.collect()
+            torch.cuda.synchronize()
+            if flow is None:
+                flow = _host(args[0], device)
+            with port_device.stage(name, stats, device):
+                got = getattr(chain_mod, fn_name)(flow, *args[1:],
+                                                  **{**kwargs, "budget_bytes": budget})
+            if stats[f"{name}_chunks"] < 3 or not torch.equal(got.cpu(), want):
+                raise AssertionError(
+                    f"chunked GOES {name}: {stats[f'{name}_chunks']} chunks; labels differ at "
+                    f"{int((got.cpu() != want).sum())} pixels")
+            over = stats[f"{name}_peak_bytes"] - stats[f"{name}_start_bytes"]
+            done.append(f"{name} {stats[f'{name}_s']:.3f} s in {stats[f'{name}_chunks']} "
+                        f"chunks of {stats[f'{name}_chunk_frames']} frames, peak "
+                        f"{over / 2**30:.3f} GiB over its start (budget {budget / 2**30:.3f})")
+            del got
+    (bt, wvd, swd), ds = record["fields"], record["ds"]
+    ds = Dataset(data_vars=ds.data_vars, coords=ds.coords)
+    for name, da in record["labels"].items():
+        ds[name] = DataArray(da.data.clone(), dims=da.dims, attrs=da.attrs)
+    stats = {}
+    budget = stage_budget("output", tuple(bt.shape))
+    out = cli.prepare_output(ds, bt, wvd, swd, stats=stats, budget_bytes=budget)
+    low = [n for n in cli.OUTPUT_STAGES if stats[f"{n}_chunks"] < 3]
+    if low:
+        raise AssertionError(f"chunked GOES output: {low} ran in under 3 chunks")
+    worst = compare_datasets(record["out"], out)
+    log(f"chunked GOES {tuple(bt.shape)} [{card_line}], teacher-forced, each stage in forced "
+        f"chunks equal to the whole run: " + "; ".join(done) + "; output stages " + ", ".join(
+            f"{n} {stats[n + '_s']:.3f} s in {stats[n + '_chunks']} chunks" for n in
+            cli.OUTPUT_STAGES) + f": the run's dataset (float32 means and stds within "
+        f"{worst:.3g}, the rest identical)")
+
+
+def storm_cells(h, w, seed=0):
+    """``tools/parity_detect.make_multistorm_scene``'s cells over (h, w):
+    (n, centres y and x, radii, growth phases) from the same draws."""
+    rng = np.random.default_rng(seed)
+    n = max(6, min(24, (h * w) // 8000))
+    cols = int(np.ceil(np.sqrt(n * 1.5)))
+    rows = int(np.ceil(n / cols))
+    pitch_y, pitch_x = 0.72 * h / rows, 0.55 * w / cols
+    ks = np.arange(n)
+    cy = 0.14 * h + (ks // cols + 0.5 + rng.uniform(-0.15, 0.15, n)) * pitch_y
+    cx = 0.04 * w + (ks % cols + 0.5 + rng.uniform(-0.15, 0.15, n)) * pitch_x
+    pitch = min(pitch_y, pitch_x)
+    radius = rng.uniform(pitch / 5.0, pitch / 3.2, n)
+    phase = rng.uniform(0.0, 0.3, n)
+    return n, cy, cx, radius, phase
+
+
+def deep_scene(t, h, w, seed=0, threads=8, cycle=GOES_FULL[0]):
+    """BT, WVD and SWD of ``make_multistorm_scene``'s storms at (t, h, w):
+    its cells, 2 px and 0.5 px a frame of advection and channel formulas,
+    the cells growing anew every ``cycle`` frames as they grow over the
+    GOES scene's frames (so that a deep scene has storms that cool as
+    fast as the GOES scene's), each cell's Gaussian summed within 6 radii
+    of its centre; frames computed in threads, each frame's noise (the
+    scene's amplitudes) drawn from a generator seeded by (``seed``, the
+    frame)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n, cy, cx, radius, phase = storm_cells(h, w, seed)
+    fields = [np.empty((t, h, w), np.float32) for _ in range(3)]
+    channels = ((290.0, -80.0, 0.15), (-15.0, 16.0, 0.1), (5.0, -4.0, 0.05))
+
+    def frame(i):
+        prog = (i % cycle) / max(cycle - 1, 1)
+        acc = np.zeros((h, w))
+        for k in range(n):
+            g = min(max((prog - phase[k]) / 0.35, 0.0), 1.0)
+            if g <= 0:
+                continue
+            y0, x0, r = cy[k] + 0.5 * i, cx[k] + 2.0 * i, 6 * radius[k]
+            ys = slice(max(0, int(y0 - r)), min(h, int(y0 + r) + 1))
+            xs = slice(max(0, int(x0 - r)), min(w, int(x0 + r) + 1))
+            yy, xx = np.ogrid[ys, xs]
+            acc[ys, xs] += g * np.exp(-((xx - x0) ** 2 + (yy - y0) ** 2) / (2 * radius[k] ** 2))
+        core = np.minimum(acc, 1.2).astype(np.float32)
+        noise = np.random.default_rng([seed, i]).standard_normal((3, h, w), dtype=np.float32)
+        for f, z, (base, scale, sigma) in zip(fields, noise, channels):
+            f[i] = np.float32(base) + np.float32(scale) * core + np.float32(sigma) * z
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(frame, range(t)))
+    return fields
+
+
+def run_deep_chain(device, card_line):
+    """The chain's stages before the floods at JOB_FRAME past the depth
+    that detect_cores holds whole in the card's own budget
+    (DEEP_CORES_OVER_FIT x that depth, whose whole-volume stage would need
+    more than the card's total memory): ``create_flow``, ``detect_cores``
+    and ``get_anvil_markers`` under the card's own budget, each stage's
+    seconds, peak, chunks and objects logged, every peak within the budget
+    at its start, cores and markers non-empty; then ``detect_cores`` again
+    at half the chunk depth gives the same labels."""
+    h, w = JOB_FRAME
+    opts = DetectionOptions()
+    gc.collect()
+    torch.cuda.empty_cache()
+    budget = port_device.memory_budget(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    per_px = port_device.CORE_MARKERS_BYTES_PER_PX
+    fit = budget // (per_px * h * w)
+    t = int(math.ceil(DEEP_CORES_OVER_FIT * fit))
+    shape = (t, h, w)
+    if t * h * w * per_px <= total:
+        raise AssertionError(f"deep chain: {shape} would run detect_cores whole in {total} bytes")
+    t0 = time.perf_counter()
+    bt, wvd, swd = deep_scene(*shape)
+    made = time.perf_counter() - t0
+    host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    log(f"deep chain: the card's budget ({budget / 2**30:.1f} GiB of {total / 2**30:.1f} GiB) "
+        f"holds detect_cores whole ({per_px} B/px) to {fit} frames of {JOB_FRAME}; running "
+        f"{shape} ({np.prod(shape) / 1e6:.0f} Mpx, whole need "
+        f"{t * h * w * per_px / 2**30:.1f} GiB), scene made on the host in {made:.1f} s "
+        f"({3 * bt.nbytes / 2**30:.1f} GiB of the host's {host / 2**30:.1f} GiB)")
+    times = chain_times(t)
+    fields = [port_device.place(torch.from_numpy(a), device) for a in (bt, wvd, swd)]
+    del bt, wvd, swd
+    stats, budgets = {}, {}
+    kw = dict(overlap=opts.overlap, absolute_overlap=opts.absolute_overlap,
+              subsegment_shrink=opts.subsegment_shrink, min_length=opts.t_offset)
+
+    def run(name, fn, extra=None):
+        gc.collect()
+        torch.cuda.synchronize()
+        budgets[name] = port_device.memory_budget(device)
+        with port_device.stage(name, stats, device):
+            result = fn()
+        if extra is not None:
+            stats[f"{name}_n"] = int(extra(result))
+        return result
+
+    flow = run("flow", lambda: create_flow(fields[0], vr_steps=opts.vr_steps,
+                                           smoothing_passes=opts.smoothing_passes,
+                                           interp_method=opts.interp_method))
+    cores = run("detect_cores", lambda: detect_cores(
+        flow, *fields, times, wvd_threshold=opts.wvd_threshold, bt_threshold=opts.bt_threshold,
+        use_wvd=opts.use_wvd, **kw), lambda r: r.max())
+    diff = fields[1] - fields[2]
+    markers = run("anvil_markers", lambda: get_anvil_markers(
+        flow, diff, threshold=opts.thick_upper, **kw), lambda r: r.max())
+    del diff, markers
+    names = ("flow", "detect_cores", "anvil_markers")
+    over = [n for n in names
+            if stats[f"{n}_peak_bytes"] - stats[f"{n}_start_bytes"] > budgets[n]]
+    if over or stats["detect_cores_n"] == 0 or stats["anvil_markers_n"] == 0:
+        raise AssertionError(f"deep chain: peaks over budget {over}; objects "
+                             f"{stats['detect_cores_n']}, {stats['anvil_markers_n']}")
+    log(f"deep chain {shape} [{card_line}]: " + "; ".join(
+        f"{n} {stats[n + '_s']:.3f} s, peak {stats[n + '_peak_bytes'] / 2**30:.3f} GiB "
+        f"({(stats[n + '_peak_bytes'] - stats[n + '_start_bytes']) / 2**30:.3f} over its start, "
+        f"budget {budgets[n] / 2**30:.3f})"
+        + (f", {stats[n + '_chunks']} chunks, the fewest {stats[n + '_chunk_frames']} frames"
+           if n + "_chunks" in stats else "")
+        + (f", objects {stats[n + '_n']}" if n + "_n" in stats else "") for n in names)
+        + f"; {stats['detect_cores_s'] / t:.3f} s a frame in detect_cores")
+    half = max(1, stats["detect_cores_chunk_frames"] // 2)
+    again = {}
+    t0 = time.perf_counter()
+    with port_device.stage("detect_cores", again, device):
+        cores_half = detect_cores(
+            flow, *fields, times, wvd_threshold=opts.wvd_threshold,
+            bt_threshold=opts.bt_threshold, use_wvd=opts.use_wvd,
+            budget_bytes=stage_budget("detect_cores", shape, half), **kw)
+    if not torch.equal(cores, cores_half):
+        raise AssertionError("deep chain: detect_cores at half the chunk depth differs")
+    log(f"deep chain: detect_cores again at {again['detect_cores_chunk_frames']}-frame chunks "
+        f"({again['detect_cores_chunks']} chunks, {time.perf_counter() - t0:.3f} s) gives the "
+        f"same {stats['detect_cores_n']} cores")
+
+
 def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
     """The kernel against its plain version (bit-equal, connectivity 1) and
     timed at every (shape, K) of ``by_shape`` that ``per_shape`` lacks."""
@@ -1220,18 +1568,22 @@ def main():
     # the detection chain: card against CPU on a small scene and its profile
     # at the bench frame; then the GOES ingest's output through it, card
     # against CPU on a small scene and timed on the CONUS-shaped scene
-    check_chain_small(device, card_line)
+    small_by_shape = check_chunked_chain_small(check_chain_small(device, card_line), card_line)
     chain_profiled_ms, chain_profiled_launches = profile_chain(device, card_line)
     check_goes_small(device, card_line)
-    goes_launches, goes_by_shape = run_goes(device, card_line)
+    goes_launches, goes_by_shape, goes_record = run_goes(device, card_line)
+    check_chunked_goes(goes_record, device, card_line)
+    del goes_record
 
     # the time-chunked flood: card against CPU, chunked against whole at
     # the job's frame, then the main path past what the card floods whole
     check_chunked_small(device, card_line)
     fit_by_shape = run_chunked_fit(device, card_line)
     deep_launches, deep_by_shape = run_deep(device, card_line)
+    run_deep_chain(device, card_line)
     worst = max(worst, check_and_time_new_shapes(
-        {**goes_by_shape, **fit_by_shape, **deep_by_shape}, per_shape, device, card_line))
+        {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape}, per_shape, device,
+        card_line))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape}
 

@@ -269,3 +269,44 @@ def test_stage_peaks_and_memory_budget(cuda):
     assert peak_memory(cuda) >= stats["outer_peak_bytes"]
     free, total = torch.cuda.mem_get_info(cuda)
     assert 0 < memory_budget(cuda) <= free and memory_budget(cuda, total) <= total
+
+
+def test_chunked_chain_on_card_equals_whole(cuda):
+    """``cli.common.run_detection`` on the card under a budget that forces
+    the anvil stages into 4-frame chunks gives the whole run's dataset,
+    anvil markers included (``chip_smoke.check_chunked_chain_small``)."""
+    from chip_smoke import CHAIN_SMALL, chain_inputs, chain_times, stage_budget
+
+    bt, wvd, swd = make_multistorm_scene(*CHAIN_SMALL)
+    wvd[3:6, 20:26, 40:46] = np.nan
+    times = chain_times(CHAIN_SMALL[0])
+    flow = create_flow(bt, vr_steps=1, smoothing_passes=1, interp_method="cubic")
+    out, stats = {}, {}
+    for name, budget in (("whole", None), ("chunked", stage_budget("thick_anvils", CHAIN_SMALL))):
+        fields, ds = chain_inputs(bt, wvd, swd, times)
+        opts = DetectionOptions(save_anvil_markers=True, flow_factory=lambda _: flow)
+        stats[name] = {}
+        out[name] = common.run_detection(*fields, ds, opts=opts, stats=stats[name],
+                                         budget_bytes=budget)
+    assert stats["chunked"]["thick_anvils_chunks"] == 3
+    assert stats["chunked"]["thin_anvils_chunks"] == 3
+    assert stats["whole"]["thick_anvils_chunks"] == 1
+    assert int(out["whole"]["thick_anvil_label"].values.max()) > 0
+    compare_datasets(out["whole"], out["chunked"])
+
+
+def test_park_and_place_on_card(cuda):
+    """``device.park`` moves the card's volumes that a stage does not read
+    to pinned host memory while the card lacks the room, largest first;
+    ``device.place`` puts a volume on the card where it fits."""
+    from tobac_flow_tpu_torch.device import park, place
+
+    vols = {"small": torch.ones(8, device=cuda), "big": torch.ones(1 << 20, device=cuda),
+            "read": torch.ones(1 << 21, device=cuda)}
+    free, _ = torch.cuda.mem_get_info(cuda)
+    moved = park(vols, {"read"}, cuda, need=2 * free)
+    assert moved == ["big", "small"]
+    assert vols["big"].is_pinned() and vols["small"].is_pinned()
+    assert vols["read"].device.type == "cuda"
+    assert park(vols, set(), cuda, need=0) == []
+    assert place(np.ones((4, 8, 8), np.float32), cuda).device.type == "cuda"

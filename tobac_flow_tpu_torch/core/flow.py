@@ -115,13 +115,15 @@ class Flow(AbstractFlow):
         return torch.as_tensor(data).to(self.device, dtype)
 
     def convolve(self, data, structure=DEFAULT_STRUCTURE, method="linear",
-                 fill_value=math.nan, dtype=torch.float32, func=None):
-        """Flow-warped convolution of ``data`` (see ``ops.convolve``)."""
-        data = self.tensor(data)
+                 fill_value=math.nan, dtype=torch.float32, func=None, budget_bytes=None):
+        """Flow-warped convolution of ``data`` (see ``ops.convolve``; in time
+        chunks over ``budget_bytes``)."""
+        data = torch.as_tensor(data)
         if tuple(data.shape) != self.shape:
             raise ValueError("Data input must have the same shape as the Flow object")
         return convolve(data, self.forward_flow, self.backward_flow, structure=structure,
-                        method=method, dtype=dtype, fill_value=fill_value, func=func)
+                        method=method, dtype=dtype, fill_value=fill_value, func=func,
+                        budget_bytes=budget_bytes)
 
     def diff(self, data, method="linear", dtype=torch.float32):
         """Semi-Lagrangian central difference along t: NaN-aware mean of the
@@ -136,29 +138,35 @@ class Flow(AbstractFlow):
         return sobel(self.tensor(data), self.forward_flow, self.backward_flow,
                      method=method, dtype=dtype, fill_value=fill_value, direction=direction)
 
-    def watershed(self, field, markers, mask=None, connectivity=1):
-        """Flow-aware watershed segmentation (see ``ops.watershed``)."""
+    def watershed(self, field, markers, mask=None, connectivity=1, stats=None,
+                  budget_bytes=None):
+        """Flow-aware watershed segmentation (see ``ops.watershed``; in time
+        chunks over ``budget_bytes``)."""
         from tobac_flow_tpu_torch.ops.watershed import watershed
 
         return watershed(self.forward_flow, self.backward_flow, field, markers, mask=mask,
-                         connectivity=connectivity, device=self.device)
+                         connectivity=connectivity, stats=stats, budget_bytes=budget_bytes,
+                         device=self.device)
 
     def label(self, data, structure=DEFAULT_STRUCTURE, dtype=torch.int32, overlap=0,
-              absolute_overlap=1, subsegment_shrink=0, peak_min_distance=5):
+              absolute_overlap=1, subsegment_shrink=0, peak_min_distance=5,
+              budget_bytes=None):
         """Label 3d connected objects in the moving frame (see
-        ``segment.label.flow_label``)."""
+        ``segment.label.flow_label``; in time chunks over ``budget_bytes``)."""
         from tobac_flow_tpu_torch.segment.label import flow_label
 
         return flow_label(self, data, structure=structure, dtype=dtype, overlap=overlap,
                           absolute_overlap=absolute_overlap,
                           subsegment_shrink=subsegment_shrink,
-                          peak_min_distance=peak_min_distance)
+                          peak_min_distance=peak_min_distance, budget_bytes=budget_bytes)
 
     def link_overlap(self, data, structure=DEFAULT_STRUCTURE, dtype=torch.int32, overlap=0,
-                     absolute_overlap=1):
+                     absolute_overlap=1, budget_bytes=None):
         """Link existing labels into contiguous objects (see
-        ``segment.label.flow_link_overlap``)."""
+        ``segment.label.flow_link_overlap``; in time chunks over
+        ``budget_bytes``)."""
         from tobac_flow_tpu_torch.segment.label import flow_link_overlap
 
         return flow_link_overlap(self, data, structure=structure, dtype=dtype,
-                                 overlap=overlap, absolute_overlap=absolute_overlap)
+                                 overlap=overlap, absolute_overlap=absolute_overlap,
+                                 budget_bytes=budget_bytes)

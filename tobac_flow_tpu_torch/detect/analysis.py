@@ -5,10 +5,12 @@ tables come back to the host as numpy arrays over labels 1..max."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, as_tensor
-from tobac_flow_tpu_torch.utils.labels import LabelSegments
+from tobac_flow_tpu_torch.device import LABEL_TABLE_BYTES_PER_PX
+from tobac_flow_tpu_torch.utils.labels import LabelSegments, SegmentChunks
 
 __all__ = [
     "find_object_lengths", "get_label_stats", "mask_labels", "n_unique_along_axis",
@@ -16,23 +18,45 @@ __all__ = [
 ]
 
 
-def find_object_lengths(labels, axis: int = 0):
-    """Extent of each label 1..max along ``axis`` (usually time)."""
-    seg = LabelSegments(labels)
-    view = [1] * labels.dim()
-    view[axis] = labels.shape[axis]
-    index = seg.gather(torch.arange(labels.shape[axis], device=labels.device).view(view))
-    lo = seg.reduce(index, "amin", empty=0)[1:]
-    hi = seg.reduce(index, "amax", empty=-1)[1:]
+def find_object_lengths(labels, axis: int = 0, budget_bytes=None):
+    """Extent of each label 1..max along ``axis`` (usually time; along
+    time, a chunk of frames at a time)."""
+    if axis != 0:
+        seg = LabelSegments(labels)
+        view = [1] * labels.dim()
+        view[axis] = labels.shape[axis]
+        index = seg.gather(torch.arange(labels.shape[axis], device=labels.device).view(view))
+        lo = seg.reduce(index, "amin", empty=0)[1:]
+        hi = seg.reduce(index, "amax", empty=-1)[1:]
+        return ((hi >= lo) * (hi - lo + 1)).cpu().numpy()
+    lo = hi = None
+    view = (-1,) + (1,) * (labels.dim() - 1)
+    for s, e, seg in SegmentChunks(labels, "find_object_lengths", budget_bytes,
+                                   bytes_per_px=LABEL_TABLE_BYTES_PER_PX):
+        index = seg.gather(torch.arange(s, e, device=labels.device).view(view))
+        first = seg.reduce(index, "amin", empty=labels.shape[0])
+        last = seg.reduce(index, "amax", empty=-1)
+        lo = first if lo is None else torch.minimum(lo, first)
+        hi = last if hi is None else torch.maximum(hi, last)
+    if lo is None:
+        return np.zeros(0, dtype=np.int64)
+    lo, hi = lo[1:], hi[1:]
     return ((hi >= lo) * (hi - lo + 1)).cpu().numpy()
 
 
-def mask_labels(labels, mask):
-    """Bool per label 1..max: does the label overlap the mask?"""
+def mask_labels(labels, mask, budget_bytes=None):
+    """Bool per label 1..max: does the label overlap the mask? (A chunk of
+    frames at a time; ``mask`` may wait on the host.)"""
     if tuple(labels.shape) != tuple(mask.shape):
         raise ValueError("Labels and mask parameters must have the same shape")
-    seg = LabelSegments(labels)
-    hit = seg.reduce(seg.gather((mask != 0).to(torch.uint8)), "amax")
+    hit = None
+    segs = SegmentChunks(labels, "mask_labels", budget_bytes,
+                         bytes_per_px=LABEL_TABLE_BYTES_PER_PX)
+    for s, e, seg in segs:
+        part = seg.reduce(seg.gather((segs.take(mask, s, e) != 0).to(torch.uint8)), "amax")
+        hit = part if hit is None else torch.maximum(hit, part)
+    if hit is None:
+        return np.zeros(0, dtype=bool)
     return hit[1:].cpu().numpy().astype(bool)
 
 
@@ -72,14 +96,17 @@ def get_label_stats(da, ds):
     )
 
 
-def weighted_statistics_on_labels(labels, da, weights, name=None, dim=None, dtype=None):
+def weighted_statistics_on_labels(labels, da, weights, name=None, dim=None, dtype=None,
+                                  budget_bytes=None):
     """Weighted mean, std, max and min of ``da`` over each label 1..max,
     with the reference's semantics for non-negative weights (pixel areas,
     or ones): mean and std drop NaN values and are NaN where the remaining
     weights sum to zero or hold a NaN; max and min are taken over the
     non-NaN values of positive weight, NaN where there is none.  Sums
-    accumulate in float64 on the labels' device; the results are cast to
-    ``dtype`` (``da``'s by default)."""
+    accumulate in float64 on the labels' device, over time chunks where
+    the volume calls for them (:class:`SegmentChunks`; the std takes a
+    second pass, about the mean); the results are cast to ``dtype``
+    (``da``'s by default)."""
     if not dim:
         dim = labels.name.split("_label")[0]
     if dtype is None:
@@ -87,17 +114,34 @@ def weighted_statistics_on_labels(labels, da, weights, name=None, dim=None, dtyp
     long_name = da.attrs.get("long_name", da.name) if hasattr(da, "attrs") else da.name
     units = da.attrs.get("units", "") if hasattr(da, "attrs") else ""
 
-    seg = LabelSegments(as_tensor(labels))
-    x = seg.gather(as_tensor(da))
-    w = seg.gather(as_tensor(weights))
-    valid = ~torch.isnan(x)
-    x64, w64 = x.double(), w.double()
-    sw = seg.sum(w64, valid)
-    mean = torch.where(sw != 0, seg.sum(w64 * x64, valid) / sw, torch.nan)
-    std = torch.sqrt(seg.sum(w64 * (x64 - mean[seg.bins]) ** 2, valid) / sw)
-    keep = valid & (w > 0)
-    stats = [mean, std, seg.reduce(x, "amax", keep, empty=float("nan")),
-             seg.reduce(x, "amin", keep, empty=float("nan"))]
+    segs = SegmentChunks(as_tensor(labels), "weighted_statistics", budget_bytes)
+    field, weights = as_tensor(da), as_tensor(weights)
+    nan = float("nan")
+
+    def pixels(s, e, seg):
+        x = seg.gather(segs.take(field, s, e))
+        w = seg.gather(segs.take(weights, s, e))
+        return x, w, ~torch.isnan(x)
+
+    sw = swx = hi = lo = None
+    for s, e, seg in segs:
+        x, w, valid = pixels(s, e, seg)
+        x64, w64 = x.double(), w.double()
+        parts = (seg.sum(w64, valid), seg.sum(w64 * x64, valid),
+                 seg.reduce(x, "amax", valid & (w > 0), empty=nan),
+                 seg.reduce(x, "amin", valid & (w > 0), empty=nan))
+        if sw is None:
+            sw, swx, hi, lo = parts
+        else:
+            sw, swx = sw + parts[0], swx + parts[1]
+            hi, lo = torch.fmax(hi, parts[2]), torch.fmin(lo, parts[3])
+    mean = torch.where(sw != 0, swx / sw, torch.nan)
+    ss = None
+    for s, e, seg in segs:
+        x, w, valid = pixels(s, e, seg)
+        part = seg.sum(w.double() * (x.double() - mean[seg.bins]) ** 2, valid)
+        ss = part if ss is None else ss + part
+    stats = [mean, torch.sqrt(ss / sw), hi, lo]
     out = []
     for stat, values in zip(["mean", "std", "max", "min"], stats):
         out.append(

@@ -13,6 +13,15 @@ Each stage is the reference's program on the whole volume at once, built
 from the same pieces: flow-warped convolutions, the structure-offset
 morphology, the hole fill and the symmetric-border Gaussian.  The 21×21
 peak maximum runs separably, rows then columns, as in the reference.
+
+Where a stage's volume would exceed its device budget (``budget_bytes``;
+``None`` means ``device.memory_budget``, and no chunks on the CPU), it
+runs in time chunks sized from its measured bytes per pixel, each read
+with its stencil's frame halos, as the reference's chunked drivers do:
+one frame for the cores' t±1 convolutions, ``max(1, erode_distance)`` for
+the anvil watershed's inputs, none for the in-plane stages.  The chunks'
+frames are the whole volume's, bit for bit.  The inputs may wait on the
+host; the outputs are on the flows' device.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from tobac_flow_tpu_torch import device as _dev
 from tobac_flow_tpu_torch.ops.convolve import (
     _convolve_impl, any0, diff_func, nanmean0, structure_taps,
 )
@@ -71,9 +81,19 @@ def _opening(mask, offs):
     return _binary_morph(_binary_morph(mask, offs, 1, 0, "erode"), offs, 1, 0, "dilate")
 
 
-def _curvature_filter(field, direction, sigma=2.0, threshold=0.0):
+def _fill_iters(shape):
+    """The hole fill's iteration cap, the reference's ``T + H + W + 8`` of
+    the whole volume: a chunk keeps the whole volume's cap, so that its
+    frames are the whole volume's."""
+    return int(sum(shape)) + 8
+
+
+def _curvature_filter(field, direction, fill_iters=None, sigma=2.0, threshold=0.0):
     """Where the smoothed field's x and y curvatures share the requested
-    sign, hole-filled and opened."""
+    sign, hole-filled (at most ``fill_iters`` flood steps, by default the
+    field's own cap) and opened."""
+    if fill_iters is None:
+        fill_iters = _fill_iters(field.shape)
     sm = _sepconv_reflect(field, _spatial_gauss_kernels(sigma))
     x2 = torch.zeros_like(field)
     x2[:, :, 1:-1] = sm[:, :, 2:] - 2 * sm[:, :, 1:-1] + sm[:, :, :-2]
@@ -83,7 +103,7 @@ def _curvature_filter(field, direction, sigma=2.0, threshold=0.0):
         cond = (x2 < -threshold) & (y2 < -threshold)
     else:
         cond = (x2 > threshold) & (y2 > threshold)
-    filled = _fill_holes_device(cond, _S2D_OFFS, int(sum(field.shape)) + 8)
+    filled = _fill_holes_device(cond, _S2D_OFFS, fill_iters)
     return _opening(filled, _S2D_OFFS)
 
 
@@ -101,9 +121,9 @@ def _peak_filter(field, direction, sigma=0.5, min_distance=10):
     return _binary_morph(border, _DISK_OFFS, 1, 0, "dilate")
 
 
-def _channel_filter(field, direction, fwd, bwd):
+def _channel_filter(field, direction, fwd, bwd, fill_iters=None):
     """Curvature or peak filter, tracked ±1 frame along the flow."""
-    either = (_curvature_filter(field, direction) | _peak_filter(field, direction))
+    either = (_curvature_filter(field, direction, fill_iters) | _peak_filter(field, direction))
     return _convolve_impl(either.to(torch.int32), fwd, bwd, _T_TAPS, "nearest", 0, any0, 0)
 
 
@@ -115,33 +135,43 @@ def _growth_rate(field, fwd, bwd, dt):
                           math.nan)
 
 
-def core_markers(bt, wvd, swd, fwd, bwd, dt, wvd_threshold, bt_threshold, use_wvd):
-    """The growth-marker mask of ``detect_cores``; ``dt`` is (T, 1, 1)
-    minutes."""
-    combined = _channel_filter(bt, "positive", fwd, bwd) != 0
+def _core_markers(bt, wvd, swd, fwd, bwd, dt, wvd_threshold, bt_threshold, use_wvd,
+                  fill_iters):
+    combined = _channel_filter(bt, "positive", fwd, bwd, fill_iters) != 0
     if use_wvd:
-        combined = combined | (_channel_filter(wvd, "negative", fwd, bwd) != 0)
-    combined = _opening(
-        _fill_holes_device(combined, _S2D_OFFS, int(sum(bt.shape)) + 8), _S2D_OFFS
-    )
+        combined = combined | (_channel_filter(wvd, "negative", fwd, bwd, fill_iters) != 0)
+    combined = _opening(_fill_holes_device(combined, _S2D_OFFS, fill_iters), _S2D_OFFS)
     combined_filter = combined.to(torch.float32) * (1.0 - linearise_field(swd, 2.5, 7.5))
     markers = (_growth_rate(-bt, fwd, bwd, dt) * combined_filter) > bt_threshold
     if use_wvd:
         markers = markers | (
             (_growth_rate(wvd, fwd, bwd, dt) * combined_filter) > wvd_threshold)
-    return _opening(markers, _S2D_OFFS)
+    return (_opening(markers, _S2D_OFFS),)
 
 
-def anvil_marker_mask(field, threshold):
-    """The anvil-marker field thresholded and opened."""
-    return _opening(field >= threshold, _S2D_OFFS)
+def core_markers(bt, wvd, swd, fwd, bwd, dt, wvd_threshold, bt_threshold, use_wvd,
+                 budget_bytes=None):
+    """The growth-marker mask of ``detect_cores``; ``dt`` is (T, 1, 1)
+    minutes.  In time chunks with one halo frame where the budget calls
+    for it (see the module's notes)."""
+    fill_iters = _fill_iters(bt.shape)
+    return _dev.run_chunked(
+        "core_markers",
+        lambda *v: _core_markers(*v, wvd_threshold, bt_threshold, use_wvd, fill_iters),
+        (bt, wvd, swd, fwd, bwd, dt), fwd.device, budget_bytes,
+        _dev.CORE_MARKERS_BYTES_PER_PX, 1, 1)[0]
 
 
-def anvil_pre_watershed(field, markers, fwd, bwd, lower, upper, erode_distance):
-    """The anvil watershed's inputs: the uphill-Sobel edge field of the
-    linearised field (+1 where positive, less the field, +inf at NaN) and
-    the markers eroded in-plane, with -1 over the eroded watershed mask
-    (where the linearised field is ≤ 0 or NaN)."""
+def anvil_marker_mask(field, threshold, device=None, budget_bytes=None):
+    """The anvil-marker field thresholded and opened (in-plane: chunks need
+    no halo), on ``device`` (the field's by default)."""
+    device = field.device if device is None else device
+    return _dev.run_chunked(
+        "anvil_marker_mask", lambda f: (_opening(f >= threshold, _S2D_OFFS),), (field,),
+        device, budget_bytes, _dev.MARKER_MASK_BYTES_PER_PX, 0, 1)[0]
+
+
+def _anvil_pre(field, markers, fwd, bwd, lower, upper, erode_distance):
     f = linearise_field(field, lower, upper)
     eroded = markers * _binary_morph(markers != 0, _S2D_OFFS, 1, 0, "erode").to(torch.int32)
     wh_nan = torch.isnan(f)
@@ -154,9 +184,31 @@ def anvil_pre_watershed(field, markers, fwd, bwd, lower, upper, erode_distance):
     return torch.where(wh_nan, math.inf, edges), eroded
 
 
-def anvil_post_watershed(labels, markers):
-    """Negative labels cleared, labels kept where their in-plane opening
-    holds, markers written back over them."""
+def anvil_pre_watershed(field, markers, fwd, bwd, lower, upper, erode_distance,
+                        budget_bytes=None):
+    """The anvil watershed's inputs: the uphill-Sobel edge field of the
+    linearised field (+1 where positive, less the field, +inf at NaN) and
+    the markers eroded in-plane, with -1 over the eroded watershed mask
+    (where the linearised field is ≤ 0 or NaN).  In time chunks with
+    ``max(1, erode_distance)`` halo frames where the budget calls for it:
+    the mask's 3×3×3 erosion reaches one frame a step."""
+    return _dev.run_chunked(
+        "anvil_pre_watershed",
+        lambda *v: _anvil_pre(*v, lower, upper, erode_distance),
+        (field, markers, fwd, bwd), fwd.device, budget_bytes, _dev.ANVIL_PRE_BYTES_PER_PX,
+        max(1, int(erode_distance)), 8)
+
+
+def _anvil_post(labels, markers):
     labels = labels.clamp(min=0)
     labels = labels * _opening(labels != 0, _S2D_OFFS).to(labels.dtype)
-    return torch.where(markers > 0, markers.to(labels.dtype), labels)
+    return (torch.where(markers > 0, markers.to(labels.dtype), labels),)
+
+
+def anvil_post_watershed(labels, markers, budget_bytes=None):
+    """Negative labels cleared, labels kept where their in-plane opening
+    holds, markers written back over them (in-plane: chunks need no
+    halo)."""
+    return _dev.run_chunked(
+        "anvil_post_watershed", _anvil_post, (labels, markers), labels.device, budget_bytes,
+        _dev.ANVIL_POST_BYTES_PER_PX, 0, 4)[0]

@@ -9,7 +9,9 @@ label names), run until a round changes nothing.  Labels only decrease and
 always name a pixel of the same component, so every component ends at its
 smallest raveled index.  Sorting those roots numbers the components 1..N
 frame-major by each one's first raster pixel: scipy's partition and
-numbering, with no cap on the component count.
+numbering, with no cap on the component count.  Over the device budget,
+``flat_label`` labels groups of frames and carries each group's count on
+to the next, which gives the whole volume's numbering.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tobac_flow_tpu_torch.device import LABEL_BYTES_PER_PX, chunk_plan, time_chunks
 from tobac_flow_tpu_torch.ops.convolve import DEFAULT_STRUCTURE
 from tobac_flow_tpu_torch.ops.warp import shift
 
@@ -77,8 +80,25 @@ def relabel_sequential(raw):
     return out
 
 
-def flat_label(mask, structure=DEFAULT_STRUCTURE, dtype=torch.int32):
-    """Connected components of a (T, H, W) mask (tensor, on its device)
-    that do not connect across time, numbered 1..N as scipy numbers them
-    frame by frame."""
-    return relabel_sequential(label_components(mask != 0, structure)).to(dtype)
+def flat_label(mask, structure=DEFAULT_STRUCTURE, dtype=torch.int32, device=None,
+               budget_bytes=None):
+    """Connected components of a (T, H, W) mask (a tensor) that do not
+    connect across time, numbered 1..N as scipy numbers them frame by
+    frame, on ``device`` (the mask's by default).  Over ``budget_bytes``
+    (``None``: ``device.memory_budget``, no chunks on the CPU) in groups of
+    frames, each numbered on from the last."""
+    device = mask.device if device is None else torch.device(device)
+    t = mask.shape[0]
+    chunk = chunk_plan("flat_label", mask.shape, LABEL_BYTES_PER_PX, device, budget_bytes,
+                       0, torch.empty((), dtype=dtype).element_size())
+    if chunk >= t:
+        return relabel_sequential(label_components(mask.to(device) != 0, structure)).to(dtype)
+    out = torch.empty(mask.shape, dtype=dtype, device=device)
+    count = 0
+    for s, e, _, _ in time_chunks(t, chunk):
+        part = relabel_sequential(label_components(mask[s:e].to(device) != 0, structure))
+        n = int(part.max()) if part.numel() else 0
+        out[s:e] = torch.where(part > 0, part + count, 0).to(dtype)
+        count += n
+        del part
+    return out

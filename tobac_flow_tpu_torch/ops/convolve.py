@@ -12,7 +12,10 @@ plane), so reductions such as the Sobel weights carry over.
 
 The whole volume is one batch: the warps are direct gathers
 (``ops.banded.warp_banded_exact_multi``) with the reference's per-plane
-displacement clip, ``21 - max |offset|`` px along each axis.
+displacement clip, ``21 - max |offset|`` px along each axis.  Where the
+batch would exceed the device budget, ``convolve`` runs in time chunks
+with one halo frame each side (the stencil reaches t±1), which gives the
+whole volume's result frame for frame.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from tobac_flow_tpu_torch.device import CONVOLVE_BYTES_PER_TAP_PX, chunk_plan, time_chunks
 from tobac_flow_tpu_torch.ops.banded import warp_banded_exact_multi
 from tobac_flow_tpu_torch.ops.warp import shift_plane
 
@@ -118,8 +122,9 @@ def _convolve_impl(data, forward_flow, backward_flow, taps, method, fill_value, 
 
 
 def convolve(data, forward_flow, backward_flow, structure=None, method="linear",
-             dtype=torch.float32, fill_value=math.nan, func=None):
-    """Flow-warped convolution on the inputs' device.
+             dtype=torch.float32, fill_value=math.nan, func=None, budget_bytes=None):
+    """Flow-warped convolution on the flows' device (``data`` may wait on
+    the host: it moves there a chunk at a time).
 
     data : (T, H, W) tensor.
     forward_flow, backward_flow : (T, H, W, 2) tensors (channel 0 = x).
@@ -131,13 +136,40 @@ def convolve(data, forward_flow, backward_flow, structure=None, method="linear",
     fill_value : out-of-frame and boundary-frame samples.
     func : optional reduction over the tap axis of the (n_taps, T, H, W)
         stack.
+    budget_bytes : device bytes the call may take beyond its inputs
+        (``CONVOLVE_BYTES_PER_TAP_PX`` a tap and pixel); over it, the call
+        runs in time chunks with one halo frame each side.  ``None`` means
+        :func:`~tobac_flow_tpu_torch.device.memory_budget` (no chunks on
+        the CPU).
 
     Returns the stack, or ``func``'s result with NaN input locations set to
     ``fill_value``.
     """
     if structure is None:
         structure = DEFAULT_STRUCTURE
-    work = data.to(dtype) if method == "nearest" else data.to(torch.float32)
-    out = _convolve_impl(work, forward_flow, backward_flow, structure_taps(structure),
-                         method, fill_value, func, fill_value)
-    return out.to(dtype)
+    taps = structure_taps(structure)
+    n_taps = sum(len(p) for p in taps)
+    dev = forward_flow.device
+    out_px = (n_taps if func is None else 1) * torch.empty((), dtype=dtype).element_size()
+    t = data.shape[0]
+    chunk = chunk_plan("convolve", data.shape, CONVOLVE_BYTES_PER_TAP_PX * n_taps + out_px,
+                       dev, budget_bytes, 1, out_px)
+
+    def run(lo, hi):
+        part = data[lo:hi].to(dev)
+        work = part.to(dtype) if method == "nearest" else part.to(torch.float32)
+        return _convolve_impl(work, forward_flow[lo:hi], backward_flow[lo:hi], taps, method,
+                              fill_value, func, fill_value).to(dtype)
+
+    if chunk >= t:
+        return run(0, t)
+    out = None
+    for s, e, lo, hi in time_chunks(t, chunk, 1):
+        part = run(lo, hi)
+        if out is None:
+            shape = list(part.shape)
+            shape[-3] = t
+            out = torch.empty(shape, dtype=dtype, device=dev)
+        out.narrow(-3, s, e - s).copy_(part.narrow(-3, s - lo, e - s))
+        del part
+    return out

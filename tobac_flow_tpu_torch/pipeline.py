@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from tobac_flow_tpu_torch.core.flow import smooth_flow_step
-from tobac_flow_tpu_torch.device import memory_budget, resolve_device, stage
+from tobac_flow_tpu_torch.device import group_size, resolve_device, stage
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow, FarnebackParams
 from tobac_flow_tpu_torch.models.variational import variational_refine
 from tobac_flow_tpu_torch.ops.banded import warp_banded_exact, warp_banded_exact_multi
@@ -64,25 +64,13 @@ FLOW_BYTES_PER_PAIR_PX = 881
 FIELDS_BYTES_PER_PX = 249
 
 
-def group_size(n, frame_px, bytes_per_px, device, group=None, reserve=0, halo=0):
-    """How many of ``n`` pairs or frames of ``frame_px`` pixels a stage
-    runs at once: ``group`` when given, else as many as
-    ``device.memory_budget`` less ``reserve`` bytes (the stage's
-    whole-volume outputs) holds at ``bytes_per_px`` with ``halo`` more
-    frames each (at least one), and all ``n`` on the CPU."""
-    if group is None:
-        per = bytes_per_px * frame_px
-        budget = memory_budget(device, reserve + (n + halo) * per)
-        group = n if budget is None else (budget - reserve) // per - halo
-    return int(max(1, min(n, group)))
-
-
 def pair_flows(data, model, vr_steps=0, smoothing_passes=0, interp_method="linear",
                device=None, group=None):
     """Forward/backward flow of a (T, H, W) stack, unclipped, on ``device``
     (see :func:`resolve_device`): ``model`` (a pair-flow module) runs the
     pair solves of both directions as one batch of 2 x ``group`` pairs
-    (see :func:`group_size`; all 2(T-1) where they fit); each pair is then
+    (see :func:`~tobac_flow_tpu_torch.device.group_size`; all 2(T-1)
+    where they fit); each pair is then
     refined (``vr_steps``) and smoothed (``smoothing_passes`` with
     ``interp_method``), as the reference does per pair.  The boundary
     frames take the negated opposite flow."""
@@ -178,7 +166,8 @@ def _fields_block(bt, fwd, bwd, dt_minutes, radius):
 
 def _detect_fields_stage(bt, fwd, bwd, dt_minutes, radius, group=None):
     """Growth, the core field and the anvil edges of a (T, H, W) stack, in
-    groups of frames (see :func:`group_size`), each computed with one
+    groups of frames (see :func:`~tobac_flow_tpu_torch.device.group_size`),
+    each computed with one
     neighbour frame per side."""
     t = bt.shape[0]
     px = bt[0].numel()

@@ -8,7 +8,11 @@ on the card, or numpy on the CPU); every per-label quantity is a
 reduction over them on that device (``utils.labels.LabelSegments``,
 ``utils.stats.find_overlap_mode``), and only the per-label vectors come
 back to the host, where the coordinates and the small per-object tables
-are numpy.
+are numpy.  Each pass over a volume runs in time chunks where the volume
+calls for them (``budget_bytes``; ``None`` means ``device.memory_budget``,
+no chunks on the CPU): per-label counts, sums, minima and maxima
+accumulate across the chunks, numberings carry on from chunk to chunk,
+and the NaN flags read one halo frame each side.
 """
 
 from __future__ import annotations
@@ -18,10 +22,13 @@ import torch
 
 from tobac_flow_tpu_torch.data.abi import get_abi_lat_lon, get_abi_pixel_area
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor
+from tobac_flow_tpu_torch.device import (
+    NAN_FLAG_BYTES_PER_PX, OUTPUT_BYTES_PER_PX, chunk_plan, time_chunks,
+)
 from tobac_flow_tpu_torch.ops.morphology import binary_dilation
 from tobac_flow_tpu_torch.utils.datetime_utils import get_datetime_from_coord
 from tobac_flow_tpu_torch.utils.labels import (
-    LabelSegments, remap_labels, slice_labels, unique_labels,
+    SegmentChunks, remap_table, slice_labels, unique_labels,
 )
 from tobac_flow_tpu_torch.utils.stats import find_overlap_mode
 
@@ -82,7 +89,7 @@ def create_new_goes_ds(goes_ds):
 # -- step labels / label coords ----------------------------------------------
 
 
-def add_step_labels(dataset: Dataset) -> None:
+def add_step_labels(dataset: Dataset, budget_bytes=None) -> None:
     """Per-step labels for cores and anvils."""
     for src, name, long_name in [
         ("core_label", "core_step_label", "labels for detected cores at each time step"),
@@ -100,17 +107,18 @@ def add_step_labels(dataset: Dataset) -> None:
         _add(
             dataset,
             name,
-            slice_labels(as_tensor(dataset[src])).to(torch.int32),
+            slice_labels(as_tensor(dataset[src]), budget_bytes).to(torch.int32),
             ("t", "y", "x"),
             long_name=long_name,
         )
 
 
-def add_label_coords(dataset: Dataset) -> Dataset:
+def add_label_coords(dataset: Dataset, budget_bytes=None) -> Dataset:
     """Add the label values present as coordinates (int32)."""
 
     def uniq(*names):
-        vals = [unique_labels(as_tensor(dataset[n])) for n in names if n in dataset]
+        vals = [unique_labels(as_tensor(dataset[n]), budget_bytes) for n in names
+                if n in dataset]
         vals = np.unique(np.concatenate(vals).astype(np.int64)) if vals else np.empty(0)
         return vals[vals != 0].astype(np.int32)
 
@@ -129,7 +137,7 @@ def add_label_coords(dataset: Dataset) -> Dataset:
 
 
 def link_cores_and_anvils(
-    dataset: Dataset, atol: int = 5, add_cores_to_anvils: bool = True
+    dataset: Dataset, atol: int = 5, add_cores_to_anvils: bool = True, budget_bytes=None
 ) -> None:
     """Each core's anvil: the thick anvil covering most of its pixels (the
     smallest label of those tied), where that is at least ``atol`` pixels,
@@ -138,7 +146,8 @@ def link_cores_and_anvils(
     cores = dataset.coords["core"]
     core_label = as_tensor(dataset["core_label"])
     core_anvil_index = find_overlap_mode(
-        core_label, as_tensor(dataset["thick_anvil_label"]), cores, min_count=atol
+        core_label, as_tensor(dataset["thick_anvil_label"]), cores, min_count=atol,
+        budget_bytes=budget_bytes,
     )
     _add(
         dataset,
@@ -150,11 +159,16 @@ def link_cores_and_anvils(
     )
 
     if add_cores_to_anvils and cores.size:
-        remapped = remap_labels(core_label, locations=cores, new_labels=core_anvil_index)
-        wh = remapped != 0
-        for name in ("thick_anvil_label", "thin_anvil_label"):
-            anvil = as_tensor(dataset[name])
-            anvil[wh] = remapped[wh].to(anvil.dtype)
+        lut = remap_table(core_label, locations=cores, new_labels=core_anvil_index)
+        anvils = [as_tensor(dataset[name]) for name in ("thick_anvil_label", "thin_anvil_label")]
+        chunk = chunk_plan("link_cores_and_anvils", core_label.shape, OUTPUT_BYTES_PER_PX,
+                           core_label.device, budget_bytes)
+        for s, e, _, _ in time_chunks(core_label.shape[0], chunk):
+            remapped = lut[core_label[s:e].long()]
+            wh = remapped != 0
+            for anvil in anvils:
+                anvil[s:e][wh.to(anvil.device)] = remapped[wh].to(anvil.device, anvil.dtype)
+            del remapped, wh
 
     anvils = dataset.coords["anvil"]
     pos = core_anvil_index[core_anvil_index > 0].astype(np.int64)
@@ -172,7 +186,7 @@ def link_cores_and_anvils(
     )
 
 
-def link_step_labels(dataset: Dataset) -> None:
+def link_step_labels(dataset: Dataset, budget_bytes=None) -> None:
     """Each step's object: the label covering most of its pixels (the
     smallest of those tied), 0 where none does."""
     for step_label, label, step_dim, name, long_name in [
@@ -200,7 +214,7 @@ def link_step_labels(dataset: Dataset) -> None:
     ]:
         idx = find_overlap_mode(
             as_tensor(dataset[step_label]), as_tensor(dataset[label]),
-            dataset.coords[step_dim],
+            dataset.coords[step_dim], budget_bytes=budget_bytes,
         )
         _add(dataset, name, idx, (step_dim,), long_name=long_name, dtype=np.int32)
 
@@ -271,32 +285,33 @@ def flag_edge_labels(dataset: Dataset, start_date=None, end_date=None, max_time_
         )
 
 
-def flag_nan_adjacent_labels(dataset: Dataset, da) -> None:
-    """Flag labels within one pixel (3×3×3) of a NaN of ``da``."""
+def flag_nan_adjacent_labels(dataset: Dataset, da, budget_bytes=None) -> None:
+    """Flag labels within one pixel (3×3×3) of a NaN of ``da`` (a chunk of
+    frames at a time, each read with a halo frame each side)."""
     core = as_tensor(dataset["core_label"])
-    nan = torch.isnan(as_tensor(da, core.device))
-    flags = {
-        "core_nan_flag": np.zeros(dataset.coords["core"].size, bool),
-        "thick_anvil_nan_flag": np.zeros(dataset.coords["anvil"].size, bool),
-        "thin_anvil_nan_flag": np.zeros(dataset.coords["anvil"].size, bool),
-    }
-    if bool(nan.any()):
-        wh_nan = binary_dilation(nan, structure=np.ones((3, 3, 3)))
-        for flag_name, label_name, dim in [
-            ("core_nan_flag", "core_label", "core"),
-            ("thick_anvil_nan_flag", "thick_anvil_label", "anvil"),
-            ("thin_anvil_nan_flag", "thin_anvil_label", "anvil"),
-        ]:
-            flags[flag_name] = _contains(
-                dataset.coords[dim], as_tensor(dataset[label_name])[wh_nan]
-            )
-    for flag_name, dim, what in [
-        ("core_nan_flag", "core", "cores"),
-        ("thick_anvil_nan_flag", "anvil", "thick anvils"),
-        ("thin_anvil_nan_flag", "anvil", "thin anvils"),
-    ]:
+    field = as_tensor(da)
+    names = [("core_nan_flag", "core_label", "core"),
+             ("thick_anvil_nan_flag", "thick_anvil_label", "anvil"),
+             ("thin_anvil_nan_flag", "thin_anvil_label", "anvil")]
+    volumes = [as_tensor(dataset[label_name]) for _, label_name, _ in names]
+    found = [[] for _ in names]
+    chunk = chunk_plan("flag_nan_adjacent_labels", core.shape, NAN_FLAG_BYTES_PER_PX,
+                       core.device, budget_bytes, 1)
+    for s, e, lo, hi in time_chunks(core.shape[0], chunk, 1):
+        nan = torch.isnan(field[lo:hi].to(core.device))
+        if not bool(nan.any()):
+            continue
+        wh_nan = binary_dilation(nan, structure=np.ones((3, 3, 3)))[s - lo:e - lo]
+        for hits, vol in zip(found, volumes):
+            hits.append(unique_labels(vol[s:e].to(core.device)[wh_nan]))
+        del nan, wh_nan
+    for (flag_name, _, dim), hits in zip(names, found):
+        values = dataset.coords[dim]
+        flags = np.isin(values, np.concatenate(hits)) if hits else np.zeros(values.size, bool)
+        what = {"core_nan_flag": "cores", "thick_anvil_nan_flag": "thick anvils",
+                "thin_anvil_nan_flag": "thin anvils"}[flag_name]
         _add(
-            dataset, flag_name, flags[flag_name], (dim,),
+            dataset, flag_name, flags, (dim,),
             long_name=f"flag for {what} intersecting missing values", dtype=bool,
         )
 
@@ -304,41 +319,72 @@ def flag_nan_adjacent_labels(dataset: Dataset, da) -> None:
 # -- per-object properties ----------------------------------------------------
 
 
-def _label_times(seg, index, t_coord):
+def _accumulate(segs, fn):
+    """The per-label results of ``fn(s, e, seg)`` (a tuple of bins per
+    label, each with how it folds: "sum", "amin" or "amax") folded over
+    the chunks of ``segs``."""
+    folds = {"sum": torch.add, "amin": torch.minimum, "amax": torch.maximum}
+    total = None
+    for s, e, seg in segs:
+        parts = fn(s, e, seg)
+        total = ([p for p, _ in parts] if total is None
+                 else [folds[how](t, p) for t, (p, how) in zip(total, parts)])
+    return total
+
+
+def _label_times(segs, index, t_coord):
     """First and last time of each label in ``index`` (NaT for a label
     without pixels), from the min and max over its pixels of the frames'
     times."""
     times = np.asarray(getattr(t_coord, "values", t_coord))
-    ticks = seg.gather(torch.as_tensor(times.view(np.int64)).view(-1, 1, 1))
+    ticks = torch.as_tensor(times.view(np.int64)).view(-1, 1, 1)
     nat = np.iinfo(np.int64).min
-    return tuple(
-        seg.at(seg.reduce(ticks, how), index, nat).astype(np.int64).view(times.dtype)
-        for how in ("amin", "amax")
-    )
+
+    def per_chunk(s, e, seg):
+        tick = seg.gather(segs.take(ticks, s, e))
+        return ((seg.reduce(tick, "amin", empty=np.iinfo(np.int64).max), "amin"),
+                (seg.reduce(tick, "amax", empty=nat), "amax"))
+
+    first, last = _accumulate(segs, per_chunk)
+    return tuple(segs.at(v, index, nat).astype(np.int64).view(times.dtype)
+                 for v in (first, last))
 
 
-def _weighted_mean(seg, field, areas, index):
-    """Per-label mean of ``field`` weighted by ``areas`` (NaN where the
+def _area_sums(segs, areas, fields=()):
+    """Per-label sums of the pixel areas and of the areas times each of
+    ``fields``, in float64."""
+    def per_chunk(s, e, seg):
+        w = seg.gather(segs.take(areas, s, e))
+        out = [(seg.sum(torch.nan_to_num(w, nan=0.0)), "sum")]
+        for field in fields:
+            out.append((seg.sum(w * seg.gather(segs.take(field, s, e)).double()), "sum"))
+            out.append((seg.sum(w), "sum"))
+        return out
+
+    return _accumulate(segs, per_chunk)
+
+
+def _weighted_means(segs, areas, fields, index):
+    """Per-label means of ``fields`` weighted by ``areas`` (NaN where the
     weights do not sum to a positive value or the label has no pixel)."""
-    w = seg.gather(areas)
-    sw = seg.sum(w)
-    mean = torch.where(sw > 0, seg.sum(w * seg.gather(field).double()) / sw, torch.nan)
-    return seg.at(mean, index, np.nan)
+    sums = _area_sums(segs, areas, fields)[1:]
+    return [segs.at(torch.where(sw > 0, swf / sw, torch.nan), index, np.nan)
+            for swf, sw in zip(sums[::2], sums[1::2])]
 
 
-def _object_properties(dataset, label_name, dim, prefix, areas, t_coord):
-    seg = LabelSegments(as_tensor(dataset[label_name]))
+def _object_properties(dataset, label_name, dim, prefix, areas, t_coord, budget_bytes):
+    segs = SegmentChunks(as_tensor(dataset[label_name]), "label_properties", budget_bytes)
     index = dataset.coords[dim]
     _add(
-        dataset, f"{prefix}_pixel_count", seg.at(seg.counts, index, 0), (dim,),
+        dataset, f"{prefix}_pixel_count", segs.at(segs.counts, index, 0), (dim,),
         long_name=f"total number of pixels for {prefix}", dtype=np.int64,
     )
-    total_area = seg.sum(torch.nan_to_num(seg.gather(areas), nan=0.0))
+    total_area = _area_sums(segs, areas)[0]
     _add(
-        dataset, f"{prefix}_total_area", seg.at(total_area, index, 0.0), (dim,),
+        dataset, f"{prefix}_total_area", segs.at(total_area, index, 0.0), (dim,),
         long_name=f"total area of {prefix}", units="km^2", dtype=np.float64,
     )
-    start_t, end_t = _label_times(seg, index, t_coord)
+    start_t, end_t = _label_times(segs, index, t_coord)
     _add(
         dataset, f"{prefix}_start_t", start_t, (dim,),
         long_name=f"initial detection time of {prefix}",
@@ -353,41 +399,37 @@ def _object_properties(dataset, label_name, dim, prefix, areas, t_coord):
     )
 
 
-def _step_properties(dataset, step_label_name, step_dim, prefix, areas, t_coord, lat, lon):
+def _step_properties(dataset, step_label_name, step_dim, prefix, areas, t_coord, lat, lon,
+                     budget_bytes):
     labels = as_tensor(dataset[step_label_name])
-    seg = LabelSegments(labels)
+    segs = SegmentChunks(labels, "label_properties", budget_bytes)
     index = dataset.coords[step_dim]
     _add(
-        dataset, f"{prefix}_pixel_count", seg.at(seg.counts, index, 0), (step_dim,),
+        dataset, f"{prefix}_pixel_count", segs.at(segs.counts, index, 0), (step_dim,),
         long_name=f"number of pixels for {prefix}", dtype=np.int64,
     )
-    area = seg.sum(torch.nan_to_num(seg.gather(areas), nan=0.0))
+    area = _area_sums(segs, areas)[0]
     _add(
-        dataset, f"{prefix}_area", seg.at(area, index, 0.0), (step_dim,),
+        dataset, f"{prefix}_area", segs.at(area, index, 0.0), (step_dim,),
         long_name=f"area of {prefix}", units="km^2", dtype=np.float64,
     )
-    step_t, _ = _label_times(seg, index, t_coord)
+    step_t, _ = _label_times(segs, index, t_coord)
     _add(
         dataset, f"{prefix}_t", step_t, (step_dim,),
         long_name=f"time of {prefix}",
     )
     # positions are the weighted means of the pixels' column and row indices
     _, h, w = labels.shape
-    for field, name in [
-        (torch.arange(w, device=labels.device), "x"),
-        (torch.arange(h, device=labels.device).view(h, 1), "y"),
-    ]:
-        _add(
-            dataset, f"{prefix}_{name}", _weighted_mean(seg, field, areas, index),
-            (step_dim,), long_name=f"{name} location of {prefix}", units="",
-            dtype=np.float64,
-        )
+    fields = [(torch.arange(w, device=segs.device), "x"),
+              (torch.arange(h, device=segs.device).view(h, 1), "y")]
     if lat is not None and lon is not None:
-        for field, name in [(lat, "lat"), (lon, "lon")]:
-            _add(
-                dataset, f"{prefix}_{name}", _weighted_mean(seg, field, areas, index),
-                (step_dim,), long_name=f"{name} location of {prefix}", dtype=np.float64,
-            )
+        fields += [(lat, "lat"), (lon, "lon")]
+    means = _weighted_means(segs, areas, [f for f, _ in fields], index)
+    for mean, (_, name) in zip(means, fields):
+        _add(
+            dataset, f"{prefix}_{name}", mean, (step_dim,),
+            long_name=f"{name} location of {prefix}", dtype=np.float64,
+        )
 
 
 def _first_step(step_obj, key, objs):
@@ -402,7 +444,7 @@ def _first_step(step_obj, key, objs):
     return np.where(sorted_obj[pos] == objs, order[pos], -1)
 
 
-def calculate_label_properties(dataset: Dataset) -> None:
+def calculate_label_properties(dataset: Dataset, budget_bytes=None) -> None:
     """Pixel counts, areas, times, lifetimes and per-step positions for
     cores and anvils; each object's step of largest area and its start
     position (``core_start_*`` and, for thick anvils, ``anvil_start_*``).
@@ -423,14 +465,15 @@ def calculate_label_properties(dataset: Dataset) -> None:
         ("thin_anvil_label", "anvil", "thin_anvil"),
     ]:
         if dataset.coords[dim].size:
-            _object_properties(dataset, label_name, dim, prefix, areas, t_coord)
+            _object_properties(dataset, label_name, dim, prefix, areas, t_coord, budget_bytes)
     for step_name, step_dim, prefix in [
         ("core_step_label", "core_step", "core_step"),
         ("thick_anvil_step_label", "thick_anvil_step", "thick_anvil_step"),
         ("thin_anvil_step_label", "thin_anvil_step", "thin_anvil_step"),
     ]:
         if step_name in dataset and dataset.coords[step_dim].size:
-            _step_properties(dataset, step_name, step_dim, prefix, areas, t_coord, lat, lon)
+            _step_properties(dataset, step_name, step_dim, prefix, areas, t_coord, lat, lon,
+                             budget_bytes)
 
     # max-area step per object (core_max_area, core_max_area_t, ...)
     for prefix, step_prefix, dim, link in [

@@ -6,7 +6,11 @@
    (nearest taps of the t±1 centre, fill 0), on the device.
 3. The (label, warped label) pair histogram of both directions: int64
    keys counted on the device; only the unique pairs and their counts come
-   to the host.
+   to the host.  Over the device budget, steps 2-3 run per time chunk
+   (one halo frame each side for the t±1 warp) and the chunks'
+   histograms are summed, as the reference's
+   ``_overlap_pair_hists_device`` does; the final lookup is applied a
+   chunk at a time.
 4. Pairs that pass the absolute (strictly greater) and proportional
    (≥ overlap × the smaller label's size) thresholds join one object: the
    undirected graph's connected components (scipy, one node per label),
@@ -22,8 +26,9 @@ import scipy.sparse as sparse
 import scipy.sparse.csgraph as csgraph
 import torch
 
+from tobac_flow_tpu_torch.device import LINK_BYTES_PER_PX, chunk_plan, time_chunks
 from tobac_flow_tpu_torch.ops.ccl import flat_label
-from tobac_flow_tpu_torch.ops.convolve import DEFAULT_STRUCTURE, convolve
+from tobac_flow_tpu_torch.ops.convolve import DEFAULT_STRUCTURE, _convolve_impl, structure_taps
 
 __all__ = ["flow_label", "flow_link_overlap", "link_labels_by_overlap"]
 
@@ -48,6 +53,28 @@ def _pair_hist(labels, warped, nplus1):
     return uniq.cpu().numpy(), counts.cpu().numpy()
 
 
+def _sum_hists(parts):
+    """The union of per-chunk (keys, counts) histograms, counts summed."""
+    keys = np.concatenate([k for k, _ in parts])
+    counts = np.concatenate([c for _, c in parts]).astype(np.int64)
+    uniq, inverse = np.unique(keys, return_inverse=True)
+    total = np.zeros(uniq.size, dtype=np.int64)
+    np.add.at(total, inverse, counts)
+    return uniq, total
+
+
+def _support_chunk(labels, budget_bytes):
+    # two bool volumes and their compare
+    return chunk_plan("support", labels.shape, 3, labels.device, budget_bytes)
+
+
+def _same_support(a, b, chunk):
+    """Are the nonzero pixels of the (T, ...) tensors ``a`` and ``b`` the
+    same?  Compared ``chunk`` frames at a time on ``a``'s device."""
+    return all(torch.equal(a[s:e] != 0, b[s:e].to(a.device) != 0)
+               for s, e, _, _ in time_chunks(a.shape[0], chunk))
+
+
 def _edges_from_hist(keys, counts, sizes, overlap, absolute_overlap):
     n = sizes.size
     ua = keys // n
@@ -59,65 +86,87 @@ def _edges_from_hist(keys, counts, sizes, overlap, absolute_overlap):
 
 def link_labels_by_overlap(flow, flat_labels, structure=DEFAULT_STRUCTURE,
                            dtype=torch.int32, overlap: float = 0.0,
-                           absolute_overlap: int = 0):
+                           absolute_overlap: int = 0, budget_bytes=None):
     """Merge per-frame labels into tracked objects by their warped overlap;
     linked groups share one id, numbered by each group's smallest original
-    label."""
-    flat_labels = flow.tensor(flat_labels, torch.int32)
-    n_labels = int(flat_labels.max())
+    label.  ``flat_labels`` may wait on the host; the result is on the
+    flow's device.  Over ``budget_bytes`` (``None``:
+    ``device.memory_budget``, no chunks on the CPU) in time chunks."""
+    dev = flow.device
+    flat_labels = torch.as_tensor(flat_labels)
+    t = flat_labels.shape[0]
+    chunk = chunk_plan("link_labels_by_overlap", flat_labels.shape, LINK_BYTES_PER_PX, dev,
+                       budget_bytes, 1, torch.empty((), dtype=dtype).element_size())
+    n_labels = int(flat_labels.max()) if flat_labels.numel() else 0
     if n_labels == 0:
-        return torch.zeros(flat_labels.shape, dtype=dtype, device=flat_labels.device)
-    sizes = torch.bincount(flat_labels.reshape(-1).long(), minlength=n_labels + 1)
-    sizes = sizes.cpu().numpy().astype(np.int64)
-    warped = convolve(flat_labels, flow.forward_flow, flow.backward_flow,
-                      structure=_label_struct_taps(structure), method="nearest",
-                      dtype=torch.int32, fill_value=0)
+        return torch.zeros(flat_labels.shape, dtype=dtype, device=dev)
+    nplus1 = n_labels + 1
+    taps = structure_taps(_label_struct_taps(structure))
+    sizes = torch.zeros(nplus1, dtype=torch.int64, device=dev)
+    hists = ([], [])  # forward-warped, then backward-warped
+    for s, e, lo, hi in time_chunks(t, chunk, 1):
+        lab = flat_labels[lo:hi].to(dev, torch.int32)
+        warped = _convolve_impl(lab, flow.forward_flow[lo:hi], flow.backward_flow[lo:hi],
+                                taps, "nearest", 0, None, 0)
+        inner = lab[s - lo:e - lo]
+        sizes += torch.bincount(inner.reshape(-1).long(), minlength=nplus1)
+        for hist, d in zip(hists, (1, 0)):
+            hist.append(_pair_hist(inner, warped[d, s - lo:e - lo], nplus1))
+        del lab, warped, inner
+    sizes = sizes.cpu().numpy()
     edges = np.concatenate([
-        _edges_from_hist(*_pair_hist(flat_labels, warped[d], n_labels + 1), sizes,
-                         overlap, absolute_overlap)
-        for d in (1, 0)  # forward-warped, then backward-warped
+        _edges_from_hist(*_sum_hists(hist), sizes, overlap, absolute_overlap)
+        for hist in hists
     ])
     graph = sparse.coo_matrix(
         (np.ones(len(edges), dtype=np.int8), (edges[:, 0], edges[:, 1])),
-        shape=(n_labels + 1, n_labels + 1),
+        shape=(nplus1, nplus1),
     )
     _, comp = csgraph.connected_components(graph, directed=False)
     n_comp = int(comp.max()) + 1
     first_member = np.full(n_comp, np.iinfo(np.int64).max, dtype=np.int64)
-    np.minimum.at(first_member, comp[1:], np.arange(1, n_labels + 1))
+    np.minimum.at(first_member, comp[1:], np.arange(1, nplus1))
     active = first_member != np.iinfo(np.int64).max
     new_id = np.zeros(n_comp, dtype=np.int64)
     new_id[active] = np.argsort(np.argsort(first_member[active], kind="stable")) + 1
-    lut = np.zeros(n_labels + 1, dtype=np.int64)
+    lut = np.zeros(nplus1, dtype=np.int64)
     lut[1:] = new_id[comp[1:]]
-    return torch.from_numpy(lut).to(flat_labels.device, dtype)[flat_labels.long()]
+    lut = torch.from_numpy(lut).to(dev, dtype)
+    out = torch.empty(flat_labels.shape, dtype=dtype, device=dev)
+    for s, e, _, _ in time_chunks(t, chunk):
+        out[s:e] = lut[flat_labels[s:e].to(dev).long()]
+    return out
 
 
 def flow_label(flow, mask, structure=DEFAULT_STRUCTURE, dtype=torch.int32,
                overlap: float = 0.0, absolute_overlap: int = 0,
-               subsegment_shrink: float = 0.0, peak_min_distance: int = 10):
+               subsegment_shrink: float = 0.0, peak_min_distance: int = 10,
+               budget_bytes=None):
     """Label 3d connected objects in the moving frame: per-frame components
     of ``mask``, linked by warped overlap."""
     if subsegment_shrink != 0:
         raise NotImplementedError(
             "subsegment_shrink > 0 needs segment/subsegment.py, which is not ported yet"
         )
-    mask = flow.tensor(mask) != 0
+    mask = torch.as_tensor(mask)
+    flat = flat_label(mask, structure=structure, device=flow.device, budget_bytes=budget_bytes)
     new_labels = link_labels_by_overlap(
-        flow, flat_label(mask, structure=structure), structure=structure, dtype=dtype,
-        overlap=overlap, absolute_overlap=absolute_overlap,
+        flow, flat, structure=structure, dtype=dtype, overlap=overlap,
+        absolute_overlap=absolute_overlap, budget_bytes=budget_bytes,
     )
-    if not torch.equal(new_labels != 0, mask):
+    del flat
+    if not _same_support(new_labels, mask, _support_chunk(new_labels, budget_bytes)):
         warnings.warn("Not all regions present in labeled array", RuntimeWarning)
     return new_labels
 
 
 def flow_link_overlap(flow, flat_labels, structure=DEFAULT_STRUCTURE, dtype=torch.int32,
-                      overlap: float = 0.0, absolute_overlap: int = 0):
+                      overlap: float = 0.0, absolute_overlap: int = 0, budget_bytes=None):
     """Link an existing label raster into contiguous objects."""
-    flat_labels = flow.tensor(flat_labels)
+    flat_labels = torch.as_tensor(flat_labels)
     new_labels = link_labels_by_overlap(flow, flat_labels, structure=structure, dtype=dtype,
-                                        overlap=overlap, absolute_overlap=absolute_overlap)
-    if not torch.equal(new_labels != 0, flat_labels != 0):
+                                        overlap=overlap, absolute_overlap=absolute_overlap,
+                                        budget_bytes=budget_bytes)
+    if not _same_support(new_labels, flat_labels, _support_chunk(new_labels, budget_bytes)):
         warnings.warn("Not all regions present in labeled array", RuntimeWarning)
     return new_labels

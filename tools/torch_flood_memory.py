@@ -1,8 +1,9 @@
-"""Device memory per pixel of the PyTorch port's main-path stages, on one
-NVIDIA GPU.
+"""Device memory per pixel of the PyTorch port's main-path stages and of
+the detection chain's chunked stages, on one NVIDIA GPU.
 
     python3 tools/torch_flood_memory.py [--height 1500] [--width 2500]
-        [--depths 6,12,24] [--chunked-depth 24] [--flow-depth 12] [--json PATH]
+        [--depths 6,12,24] [--chunked-depth 24] [--flow-depth 12]
+        [--stage-depths 6,12] [--stages-only] [--json PATH]
 
 For each depth T, on ``bench.make_scene(T, H, W)`` with ``make_markers``:
 
@@ -18,7 +19,15 @@ For each depth T, on ``bench.make_scene(T, H, W)`` with ``make_markers``:
 
 Then the flood at ``--chunked-depth`` forced into at least 3 time chunks,
 against its whole-volume labels: agreement, chunks, passes, floods and
-seconds.  Every figure is printed with the card's name and power limit;
+seconds.
+
+Then (or alone, with ``--stages-only``) each time-chunked stage of the
+detection chain (the ``*_BYTES_PER_PX`` of ``tobac_flow_tpu_torch/
+device.py``) on ``chip_smoke.deep_scene`` at each ``--stage-depths`` T,
+given its CLI-default flow: whole, (peak - allocated before) / (T x H x
+W); and in 4-frame chunks, (peak - before - its whole-volume outputs) /
+((4 + 2 halos) x H x W), each chunked result checked equal to the whole
+one.  Every figure is printed with the card's name and power limit;
 ``--json PATH`` also writes them to a file.  Run from the repo root.
 Imports no JAX.
 """
@@ -31,13 +40,25 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from bench import make_markers, make_scene  # noqa: E402
-from chip_smoke import card  # noqa: E402
+from chip_smoke import card, chain_times, deep_scene  # noqa: E402
+from tobac_flow_tpu_torch import device as port_device  # noqa: E402
+from tobac_flow_tpu_torch.core.flow import create_flow  # noqa: E402
+from tobac_flow_tpu_torch.data.ncdataset import DataArray  # noqa: E402
+from tobac_flow_tpu_torch.detect import analysis, fused  # noqa: E402
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions  # noqa: E402
+from tobac_flow_tpu_torch.detect.detection import get_anvil_markers  # noqa: E402
+from tobac_flow_tpu_torch.ops.ccl import flat_label  # noqa: E402
+from tobac_flow_tpu_torch.ops.convolve import convolve, nanmean0  # noqa: E402
+from tobac_flow_tpu_torch.schema import dataset as schema  # noqa: E402
+from tobac_flow_tpu_torch.segment.label import link_labels_by_overlap  # noqa: E402
+from tobac_flow_tpu_torch.utils import labels as labels_mod  # noqa: E402
+from tobac_flow_tpu_torch.utils.stats import find_overlap_mode  # noqa: E402
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow  # noqa: E402
 from tobac_flow_tpu_torch.ops import watershed as ws  # noqa: E402
 from tobac_flow_tpu_torch.pipeline import (  # noqa: E402
@@ -59,6 +80,113 @@ def measured(fn):
     return out, torch.cuda.max_memory_allocated() - before, time.perf_counter() - t0
 
 
+CHUNK = 4  # frames of a measured chunk
+
+
+def _equal(a, b):
+    if isinstance(a, (tuple, list)):
+        return all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, DataArray):
+        return _equal(torch.as_tensor(a.values), torch.as_tensor(b.values))
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+    if a.is_floating_point():
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def stage_rows(t, h, w, dev, line):
+    """Bytes per pixel of each chunked stage at (t, h, w), whole and per
+    chunk frame: {constant: {"whole": B/px, "chunked": B/px, "s": ...}}."""
+    opts = DetectionOptions()
+    px = t * h * w
+    bt, wvd, swd = (torch.from_numpy(a).to(dev) for a in deep_scene(t, h, w))
+    flow = create_flow(bt, vr_steps=opts.vr_steps, smoothing_passes=opts.smoothing_passes,
+                       interp_method=opts.interp_method, device=dev)
+    fwd, bwd = flow.forward_flow, flow.backward_flow
+    dt = torch.full((t, 1, 1), 5.0, device=dev)
+    diff = wvd - swd
+    markers = get_anvil_markers(flow, diff, threshold=opts.thick_upper, overlap=opts.overlap,
+                                absolute_overlap=opts.absolute_overlap,
+                                min_length=opts.t_offset)
+    mask = fused.anvil_marker_mask(diff, opts.thick_upper)
+    flat = flat_label(mask)
+    linked = link_labels_by_overlap(flow, flat, overlap=0.5, absolute_overlap=4)
+    edges, eroded = fused.anvil_pre_watershed(diff, markers, fwd, bwd, opts.thick_lower,
+                                              opts.thick_upper, opts.erode_distance)
+    # the per-label passes cost bytes per labelled pixel: measure them on
+    # labels that cover every pixel (the linked objects, the rest one label)
+    dense = torch.where(linked > 0, linked, int(linked.max()) + 1)
+    keep = np.arange(int(dense.max())) % 2 == 0
+    bt_da = DataArray(bt, dims=("t", "y", "x"), name="bt")
+    label_da = DataArray(dense, dims=("t", "y", "x"), name="anvil_label")
+    ds = schema.Dataset(coords={"t": chain_times(t)})
+    ds["core_label"] = DataArray(dense, dims=("t", "y", "x"))
+    for name in ("thick_anvil_label", "thin_anvil_label"):
+        ds[name] = DataArray(dense, dims=("t", "y", "x"))
+    ds.coords["core"] = labels_mod.unique_labels(dense).astype(np.int32)
+    ds.coords["anvil"] = ds.coords["core"]
+    wvd_nan = wvd.clone()
+    wvd_nan[t // 2, : h // 4] = float("nan")
+    weights = torch.ones((), device=dev)
+    # constant -> (call given a budget, halo frames, output bytes per pixel)
+    stages = {
+        "CONVOLVE_BYTES_PER_TAP_PX": (lambda b: convolve(
+            bt, fwd, bwd, structure=np.ones((3, 3, 3)), method="cubic", func=nanmean0,
+            budget_bytes=b), 1, 4),
+        "CORE_MARKERS_BYTES_PER_PX": (lambda b: fused.core_markers(
+            bt, wvd, swd, fwd, bwd, dt, 0.25, 0.5, True, budget_bytes=b), 1, 1),
+        "MARKER_MASK_BYTES_PER_PX": (lambda b: fused.anvil_marker_mask(
+            diff, opts.thick_upper, budget_bytes=b), 0, 1),
+        "ANVIL_PRE_BYTES_PER_PX": (lambda b: fused.anvil_pre_watershed(
+            diff, markers, fwd, bwd, opts.thick_lower, opts.thick_upper, opts.erode_distance,
+            budget_bytes=b), max(1, opts.erode_distance), 8),
+        "ANVIL_POST_BYTES_PER_PX": (lambda b: fused.anvil_post_watershed(
+            eroded, markers, budget_bytes=b), 0, 4),
+        "LABEL_BYTES_PER_PX": (lambda b: flat_label(mask, budget_bytes=b), 0, 4),
+        "LABEL_BYTES_PER_PX step labels": (lambda b: labels_mod.make_step_labels(
+            dense, b), 0, 4),
+        "LINK_BYTES_PER_PX": (lambda b: link_labels_by_overlap(
+            flow, flat, overlap=0.5, absolute_overlap=4, budget_bytes=b), 1, 4),
+        "LABEL_TABLE_BYTES_PER_PX remap": (lambda b: labels_mod.remap_labels(
+            dense, keep, budget_bytes=b), 0, 4),
+        "LABEL_TABLE_BYTES_PER_PX slice": (lambda b: labels_mod.slice_labels(dense, b), 0, 4),
+        "LABEL_TABLE_BYTES_PER_PX unique": (lambda b: labels_mod.unique_labels(dense, b), 0, 0),
+        "LABEL_TABLE_BYTES_PER_PX lengths": (lambda b: analysis.find_object_lengths(
+            dense, budget_bytes=b), 0, 0),
+        "LABEL_TABLE_BYTES_PER_PX mask": (lambda b: analysis.mask_labels(
+            dense, wvd > -5, budget_bytes=b), 0, 0),
+        "OUTPUT_BYTES_PER_PX statistics": (lambda b: analysis.weighted_statistics_on_labels(
+            label_da, bt_da, weights, name="anvil", dim="anvil", budget_bytes=b), 0, 0),
+        "OUTPUT_BYTES_PER_PX overlap": (lambda b: find_overlap_mode(
+            dense, flat, ds.coords["core"], budget_bytes=b), 0, 0),
+        "OUTPUT_BYTES_PER_PX properties": (lambda b: schema.calculate_label_properties(
+            ds, b), 0, 0),
+        "NAN_FLAG_BYTES_PER_PX": (lambda b: schema.flag_nan_adjacent_labels(
+            ds, wvd_nan, b), 1, 0),
+    }
+    rows = {}
+    for name, (call, halo, out_px) in stages.items():
+        whole, peak, sec = measured(lambda: call(NO_BUDGET))
+        row = {"whole": peak / px, "whole_s": sec}
+        constant = getattr(port_device, name.split()[0])
+        if name.startswith("CONVOLVE"):
+            constant = 27 * constant + 4  # as ops.convolve plans its 27 taps and output
+        budget = (CHUNK + 2 * halo) * constant * h * w + out_px * px
+        chunked, peak, sec = measured(lambda: call(budget))
+        row["chunked"] = (peak - out_px * px) / ((CHUNK + 2 * halo) * h * w)
+        row["chunked_s"] = sec
+        row["equal"] = whole is None or _equal(whole, chunked)
+        if name.startswith("CONVOLVE"):
+            row = {k: v / 27 if k in ("whole", "chunked") else v for k, v in row.items()}
+        rows[name] = row
+        print(json.dumps({"shape": [t, h, w], "stage": name, **row}), f"[{line}]", flush=True)
+        if not row["equal"]:
+            raise AssertionError(f"{name}: chunked result differs from the whole volume's")
+        del whole, chunked
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=1500)
@@ -67,6 +195,9 @@ def main(argv=None):
     ap.add_argument("--chunked-depth", type=int, default=24)
     ap.add_argument("--flow-depth", type=int, default=12,
                     help="the deepest T whose flow stage runs as one group")
+    ap.add_argument("--stage-depths", default="6,12")
+    ap.add_argument("--stages-only", action="store_true",
+                    help="measure the chain's chunked stages alone")
     ap.add_argument("--json", help="also write the numbers to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -78,7 +209,7 @@ def main(argv=None):
     px = h * w
     opts = DetectionOptions()
     rows = []
-    for t in [int(d) for d in args.depths.split(",")]:
+    for t in [] if args.stages_only else [int(d) for d in args.depths.split(",")]:
         bt_np = make_scene(t, h, w)
         markers_np, n = make_markers(bt_np)
         bt = torch.from_numpy(bt_np).to(dev)
@@ -138,7 +269,16 @@ def main(argv=None):
     summary = {"card": line, "rows": rows}
     for key in ("flow_bytes_per_pair_px", "cli_flow_bytes_per_pair_px", "fields_bytes_per_px",
                 "flood_plain_bytes_per_px", "flood_mixed_bytes_per_px"):
-        summary[f"max_{key}"] = max(r[key] for r in rows if key in r)
+        if any(key in r for r in rows):
+            summary[f"max_{key}"] = max(r[key] for r in rows if key in r)
+    stage_runs = [stage_rows(t, h, w, dev, line) for t in
+                  (int(d) for d in args.stage_depths.split(",") if d)]
+    summary["stages"] = stage_runs
+    for name in stage_runs[0] if stage_runs else ():
+        constant = name.split()[0]
+        most = max(max(r[name]["whole"], r[name]["chunked"]) for r in stage_runs)
+        summary[f"max_{constant}"] = max(summary.get(f"max_{constant}", 0), most)
+        torch.cuda.empty_cache()
     if args.json:
         Path(args.json).write_text(json.dumps(summary, indent=1))
     print(json.dumps({k: v for k, v in summary.items() if k != "rows"}))
