@@ -64,6 +64,18 @@
    against its plain version (bit-equal) and timed at each shape class
    that the CONUS-shaped GOES run and these floods launched it with and 3
    did not cover.
+10. Cross-file linking, which floods nothing (0 kernel launches).  Where
+   h5py is absent, each of the four linking CLIs raises naming it before
+   any read or pass.  (a) FileLinker, LabelLinker and the batch path on
+   the card over the four recorded JAX detection windows
+   (``tests/data/linking_windows.npz``), from memory, whole and under a
+   budget that runs every pass over a volume in at least 3 chunks: each
+   output identical to the JAX package's recorded output.  (b) After the
+   deep chain (``create_flow``, ``detect_cores`` and ``get_anvil_markers``
+   at 1500x2500 past the depth whose cores the card holds whole), three
+   windows in the GOES CLI's layout cut from its volumes, linked by all
+   three under the card's own budget: each pass's seconds, peak, budget,
+   chunks and links; the labels held to the deep volume's.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -91,6 +103,7 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -113,6 +126,12 @@ from tobac_flow_tpu_torch.models.farneback import FarnebackFlow
 from tobac_flow_tpu_torch.ops import watershed as ws
 from tobac_flow_tpu_torch.ops import ws_sweeps
 from tobac_flow_tpu_torch.pipeline import _normalise_pair, fused_flow_watershed, pair_flows
+from tobac_flow_tpu_torch.track import file_linker, linking
+from tobac_flow_tpu_torch.track.store import MemoryStore
+from tobac_flow_tpu_torch.utils.datetime_utils import (
+    get_dates_from_filename, trim_file_start_and_end,
+)
+from tobac_flow_tpu_torch.utils.labels import unique_labels
 from tools.parity_detect import make_multistorm_scene
 
 SMALL = (8, 160, 224)
@@ -1363,7 +1382,9 @@ def run_deep_chain(device, card_line):
     and ``get_anvil_markers`` under the card's own budget, each stage's
     seconds, peak, chunks and objects logged, every peak within the budget
     at its start, cores and markers non-empty; then ``detect_cores`` again
-    at half the chunk depth gives the same labels."""
+    at half the chunk depth gives the same labels.  Returns the cores, the
+    anvil markers (on the card), the BT (on the host) and the times, for
+    the linking phase."""
     h, w = JOB_FRAME
     opts = DetectionOptions()
     gc.collect()
@@ -1411,7 +1432,7 @@ def run_deep_chain(device, card_line):
     diff = fields[1] - fields[2]
     markers = run("anvil_markers", lambda: get_anvil_markers(
         flow, diff, threshold=opts.thick_upper, **kw), lambda r: r.max())
-    del diff, markers
+    del diff
     names = ("flow", "detect_cores", "anvil_markers")
     over = [n for n in names
             if stats[f"{n}_peak_bytes"] - stats[f"{n}_start_bytes"] > budgets[n]]
@@ -1439,6 +1460,375 @@ def run_deep_chain(device, card_line):
     log(f"deep chain: detect_cores again at {again['detect_cores_chunk_frames']}-frame chunks "
         f"({again['detect_cores_chunks']} chunks, {time.perf_counter() - t0:.3f} s) gives the "
         f"same {stats['detect_cores_n']} cores")
+    bt = fields[0].cpu().numpy()
+    del flow, fields, cores_half
+    return cores, markers, bt, times
+
+
+# -- cross-file linking -------------------------------------------------------
+
+LINKING_RECORD = "linking_windows.npz"  # in tests/data: tests/test_torch_linking.py writes it
+# tests/test_linking.py's long-lived storm, (frames, height, width), and its
+# windows: (first frame, frames, owned frames [s, e)); the last after a gap
+LINK_SCENE = (56, 96, 128)
+LINK_LAYOUT = ((0, 21, 6, 15), (9, 21, 15, 24), (18, 21, 24, 33), (41, 15, 44, 53))
+# (window, frame, rows, columns) of the recorded BT's NaN patch
+LINK_NAN_PATCH = (1, 10, (44, 52), (58, 70))
+LINK_CHUNK_FRAMES = 4  # a forced budget's chunks (device.frames_budget)
+# passes that read no volume a chunk at a time: the store's reads and
+# writes, the edge flags (a volume's edge rows and pad frames) and
+# whole-volume maxima (reductions where the volume lies)
+LINK_UNCHUNKED = ("open", "save", "edge_flags", "running_max")
+LINK_PAD = 12  # the GOES CLI's pad frames each side of a window
+LINK_ATOL, LINK_RTOL = 5, 0.5
+
+
+def linking_window_name(own_start, own_end):
+    """A GOES-style detection file name, its _S/_E tokens the window's
+    owned frames on a 5-minute clock from 2020-06-01."""
+    from datetime import datetime, timedelta
+
+    def tok(frame):
+        dt = datetime(2020, 6, 1) + timedelta(seconds=300 * int(frame))
+        return f"{dt.year}{dt.timetuple().tm_yday:03d}{dt:%H%M%S}"
+
+    return f"detected_dccs_SYN_S{tok(own_start)}_E{tok(own_end)}.nc"
+
+
+def linking_record(path):
+    """The recorded linking windows (numpy only): ``names``, ``windows``
+    (port Datasets: the three label volumes, ``core_anvil_index``, the
+    ``core`` and ``anvil`` coordinates and the BT, NaN where recorded),
+    and the JAX linkers' outputs on them, ``file``, ``label`` and
+    ``batch``: per window {variable or coordinate: values}, the BT and the
+    y and x coordinates left out."""
+    z = np.load(path, allow_pickle=False)
+    t, h, w = (int(v) for v in z["scene"])
+    times = chain_times(t)
+    names, windows = [], []
+    for i, (t0, nt, s, e) in enumerate(z["layout"]):
+        ds = Dataset(coords={"t": times[t0:t0 + nt], "y": np.arange(h) * 2000.0,
+                             "x": np.arange(w) * 2000.0})
+        for name in ("core_label", "thick_anvil_label", "thin_anvil_label"):
+            ds[name] = DataArray(z[f"w{i}_{name}"], dims=("t", "y", "x"))
+        ds.coords["core"] = z[f"w{i}_c_core"]
+        ds.coords["anvil"] = z[f"w{i}_c_anvil"]
+        ds["core_anvil_index"] = DataArray(z[f"w{i}_core_anvil_index"], dims=("core",))
+        tenths = z[f"w{i}_bt_tenths"]
+        bt = np.where(tenths == np.iinfo(np.int16).min, np.nan, tenths / 10.0)
+        ds["bt"] = DataArray(bt.astype(np.float32), dims=("t", "y", "x"))
+        names.append(linking_window_name(s, e))
+        windows.append(ds)
+    out = {"names": names, "windows": windows}
+    for key in ("file", "label", "batch"):
+        out[key] = [{k.split("_", 1)[1].removeprefix("c_"): z[k] for k in z.files
+                     if k.startswith(f"{key}{i}_")} for i in range(len(names))]
+    return out
+
+
+def _held_to(want, got, what):
+    """The dataset ``got`` holds every recorded variable and coordinate of
+    ``want`` ({name: values}), with equal dtypes and values."""
+    for name, values in want.items():
+        have = got[name].values if name in got.data_vars else got.coords[name]
+        if have.dtype != values.dtype or not np.array_equal(have, values):
+            raise AssertionError(f"{what}: {name} differs from the JAX record")
+    extra = set(got.data_vars) - set(want) - {"bt"}
+    if extra:
+        raise AssertionError(f"{what}: variables {sorted(extra)} not in the JAX record")
+
+
+def link_all(names, store, device, budget, atol=None, rtol=None):
+    """FileLinker, LabelLinker and the batch path (overlaps,
+    ``process_linking_output``, ``relabel_file``) over the datasets of
+    ``names`` in ``store``, on ``device`` under ``budget``: {linker:
+    (outputs, pass log)}.  LabelLinker at its own defaults unless ``atol``
+    and ``rtol`` are given."""
+    out = {}
+    fl = file_linker.FileLinker(names, device=device, budget_bytes=budget, store=store)
+    paths = fl.process_files()
+    if fl.max_open_datasets > 2:
+        raise AssertionError(f"FileLinker held {fl.max_open_datasets} datasets")
+    out["file"] = ([store.saved[str(p)] for p in paths], fl.passes)
+    kw = {} if atol is None else {"atol": atol, "rtol": rtol}
+    ll = file_linker.LabelLinker(names, device=device, budget_bytes=budget, store=store, **kw)
+    ll.link_all()
+    paths = ll.output_files()
+    if ll.max_open_datasets > 2:
+        raise AssertionError(f"LabelLinker held {ll.max_open_datasets} datasets")
+    out["label"] = ([store.saved[str(p)] for p in paths], ll.passes)
+    batch, t0 = [], time.perf_counter()
+    results = [linking.find_overlap_between_files(a, b, device=device, budget_bytes=budget,
+                                                  store=store)
+               for a, b in zip(names[:-1], names[1:])]
+    links = linking.process_linking_output(results)
+    for name in names:
+        batch.append(linking.relabel_file(name, links, device=device, budget_bytes=budget,
+                                          store=store).load())
+    torch.cuda.synchronize()
+    linked = sum(int(r[k][2].size) for r in results for k in ("core", "anvil"))
+    out["batch"] = (batch, [{"pass": "batch", "seconds": time.perf_counter() - t0,
+                             "chunks": 1, "linked": linked}])
+    return out
+
+
+def most_chunks(passes):
+    """{pass: the most chunks it ran in} over a linker's pass log, less the
+    passes that read no volume a chunk at a time (``LINK_UNCHUNKED``)."""
+    most = {}
+    for p in passes:
+        if p["pass"] not in LINK_UNCHUNKED:
+            most[p["pass"]] = max(most.get(p["pass"], 0), p["chunks"])
+    return most
+
+
+def check_linking_small(device, card_line):
+    """Phase (a): both linkers and the batch path on the card over the
+    recorded windows, from memory (``MemoryStore``): every output window
+    identical to the JAX package's recorded output (labels, coordinates,
+    flags, step labels and indices), whole and under a budget that runs
+    every pass over a volume in at least 3 chunks."""
+    rec = linking_record(Path(__file__).resolve().parent / "tests" / "data" / LINKING_RECORD)
+    t0 = time.perf_counter()
+    reset_counts()
+    for what, budget in (("whole", None),
+                         ("chunked", port_device.frames_budget(LINK_CHUNK_FRAMES))):
+        store = MemoryStore(dict(zip(rec["names"], rec["windows"])))
+        outs = link_all(rec["names"], store, device, budget)
+        for key, (datasets, _) in outs.items():
+            for i, ds in enumerate(datasets):
+                _held_to(rec[key][i], ds, f"linking {what}, {key} window {i}")
+        chunks = {k: most_chunks(outs[k][1]) for k in ("file", "label")}
+        if what == "chunked" and min(min(c.values()) for c in chunks.values()) < 3:
+            raise AssertionError(f"linking: a pass ran in fewer than 3 chunks: {chunks}")
+        log(f"linking (a) {what} on the card [{card_line}]: FileLinker, LabelLinker and the "
+            f"batch path over the {len(rec['names'])} recorded windows "
+            f"{tuple(rec['windows'][0]['core_label'].shape[1:])} give the JAX record's outputs"
+            + (f"; most chunks per pass {chunks}" if what == "chunked" else ""))
+    launches, _ = read_counts()
+    if launches:
+        raise AssertionError(f"linking launched the ws_sweeps kernel {launches} times")
+    log(f"linking (a): {time.perf_counter() - t0:.1f} s, 0 kernel launches")
+
+
+def deep_thin(thick, device, radius=2):
+    """A thin-anvil family over the thick labels ``thick`` (T, H, W) on
+    the card without the floods: each frame's labels grown by a (2r+1)^2
+    max filter into their unlabelled neighbours, so thin ⊇ thick under
+    the same numbers."""
+    out = torch.empty_like(thick)
+    for s, e, _, _ in port_device.time_chunks(thick.shape[0], 8):
+        lab = thick[s:e].to(device)
+        grown = torch.nn.functional.max_pool2d(lab[:, None].float(), 2 * radius + 1, 1,
+                                               radius)[:, 0].to(lab.dtype)
+        out[s:e] = torch.where(lab > 0, lab, grown)
+    return out
+
+
+def _numbered(vol, uniq_from=None):
+    """``vol`` with its labels (those of ``uniq_from``, by default its
+    own) renumbered 1..n in increasing order, as a window's own detection
+    numbers them."""
+    found = unique_labels(vol if uniq_from is None else uniq_from)
+    lut = torch.zeros(int(found.max()) + 1 if found.size else 1, dtype=vol.dtype,
+                      device=vol.device)
+    lut[torch.as_tensor(found.astype(np.int64), device=vol.device)] = torch.arange(
+        1, found.size + 1, dtype=vol.dtype, device=vol.device)
+    return lut[vol.long()]
+
+
+def _pairs(a, b):
+    """The (a, b) label pairs over the pixels where both are nonzero, on
+    the card; raises where their supports differ."""
+    if not torch.equal(a != 0, b != 0):
+        raise AssertionError("linking: the linked labels' pixels differ from the deep volume's")
+    m = a != 0
+    width = int(b.max()) + 1
+    keys = torch.unique(a[m].long() * width + b[m].long()).cpu().numpy()
+    return np.stack([keys // width, keys % width], axis=1)
+
+
+def run_deep_linking(deep, device, card_line):
+    """Phase (b): three windows in the GOES CLI's layout cut from the deep
+    chain's volumes (``run_deep_chain``: each window owns a third of the
+    frames within LINK_PAD pad frames each side, so neighbours share
+    2 x LINK_PAD frames; its labels numbered from 1 as its own detection
+    would; a thin family grown from the thick one; the deep BT, one NaN
+    frame in the middle window), linked on the card under its own budget
+    by FileLinker, LabelLinker (atol 5, rtol 0.5) and the batch path.
+    Logs each linker's passes (seconds, peak over its start against the
+    budget at its start, chunks, objects linked).  Checks: over the owned
+    frames each linker's labels and the deep volume's are in bijection
+    for cores and both anvil families, but for objects with fewer than
+    atol pixels in a shared interior (which may split; counted); the
+    three linkers give the same partition; every peak within its budget;
+    the step labels rise across the windows."""
+    cores, markers, bt, times = deep
+    t, h, w = cores.shape
+    own = (t - 2 * LINK_PAD) // 3
+    t0 = time.perf_counter()
+    thin = deep_thin(markers, device)
+    names, store, bounds = [], {}, []
+    for k in range(3):
+        lo, hi = k * own, k * own + own + 2 * LINK_PAD
+        ds = Dataset(coords={"t": times[lo:hi], "y": np.arange(h) * 2000.0,
+                             "x": np.arange(w) * 2000.0})
+        ds["core_label"] = DataArray(_numbered(cores[lo:hi].to(device)), dims=("t", "y", "x"))
+        ds["thick_anvil_label"] = DataArray(_numbered(markers[lo:hi].to(device),
+                                                      thin[lo:hi]), dims=("t", "y", "x"))
+        ds["thin_anvil_label"] = DataArray(_numbered(thin[lo:hi]), dims=("t", "y", "x"))
+        window_bt = bt[lo:hi]
+        if k == 1:  # a NaN frame of the middle window's own (where own > 2 pads, its alone)
+            window_bt = window_bt.copy()
+            window_bt[(2 * LINK_PAD + own) // 2] = np.nan
+        ds["bt"] = DataArray(window_bt, dims=("t", "y", "x"))
+        names.append(linking_window_name(lo + LINK_PAD, lo + LINK_PAD + own))
+        store[names[-1]] = ds
+        bounds.append((lo, hi))
+    torch.cuda.synchronize()
+    log(f"linking (b): 3 windows of {(own + 2 * LINK_PAD, h, w)} (owned {own} frames, "
+        f"{2 * LINK_PAD} shared with each neighbour) cut from the deep {tuple(cores.shape)} on "
+        f"the card in {time.perf_counter() - t0:.1f} s: cores from detect_cores, thick from "
+        f"get_anvil_markers, thin = thick grown by a 5x5 max filter per frame where unlabelled, "
+        f"each window numbered from 1; BT the deep scene's, a NaN frame in window 1")
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = link_all(names, MemoryStore(store), device, None, LINK_ATOL, LINK_RTOL)
+    launches, by_shape = read_counts()
+    if launches:
+        raise AssertionError(f"linking launched the ws_sweeps kernel {launches} times")
+
+    over = []
+    for key, (_, passes) in outs.items():
+        rows = {}
+        for p in passes:
+            row = rows.setdefault(p["pass"], {"n": 0, "s": 0.0, "over": 0, "budget": 0,
+                                              "chunks": 0, "linked": 0})
+            row["n"] += 1
+            row["s"] += p["seconds"]
+            row["chunks"] = max(row["chunks"], p["chunks"])
+            row["linked"] += p.get("linked", 0)
+            if "peak_bytes" in p:
+                grew = p["peak_bytes"] - p["start_bytes"]
+                if grew > p["budget_bytes"]:
+                    over.append((key, p["pass"], p["file"], grew, p["budget_bytes"]))
+                if grew >= row["over"]:
+                    row["over"], row["budget"] = grew, p["budget_bytes"]
+        log(f"linking (b) {key} [{card_line}]: total {sum(r['s'] for r in rows.values()):.3f} s; "
+            + "; ".join(f"{name} x{r['n']} {r['s']:.3f} s" + (
+                f", peak {r['over'] / 2**30:.3f} GiB over its start (budget "
+                f"{r['budget'] / 2**30:.1f})" if r["budget"] else "")
+                + f", chunks {r['chunks']}" + (f", linked {r['linked']}" if r["linked"] else "")
+                for name, r in rows.items()))
+    if over:
+        raise AssertionError(f"linking: peaks over budget {over}")
+
+    # bijection with the deep volume over the owned frames
+    deep_vols = {"core_label": cores, "thick_anvil_label": markers, "thin_anvil_label": thin}
+    split_ok = {}
+    for var, link_var in (("core_label", cores), ("thick_anvil_label", markers)):
+        allowed = set()
+        for k in range(2):
+            lo, hi = bounds[k + 1][0] + 1, bounds[k][1] - 1  # the shared interior
+            counts = torch.bincount(link_var[lo:hi].reshape(-1).long()).cpu().numpy()
+            present = set(unique_labels(link_var[bounds[k][0]:bounds[k][1]]).tolist()) & set(
+                unique_labels(link_var[bounds[k + 1][0]:bounds[k + 1][1]]).tolist())
+            allowed |= {v for v in present if v >= counts.size or counts[v] < LINK_ATOL}
+        split_ok[var] = allowed
+    split_ok["thin_anvil_label"] = split_ok["thick_anvil_label"]
+    partitions, splits = {}, {}
+    for key, (datasets, _) in outs.items():
+        for var, deep_vol in deep_vols.items():
+            pairs = []
+            for k, ds in enumerate(datasets):
+                if key == "batch":
+                    s, e = get_dates_from_filename(names[k])
+                    ds = trim_file_start_and_end(ds, s, e)
+                lo = bounds[k][0] + LINK_PAD
+                lab = torch.as_tensor(ds[var].values).to(device)
+                pairs.append(_pairs(lab, deep_vol[lo:lo + lab.shape[0]].to(device)))
+            pairs = np.unique(np.concatenate(pairs), axis=0)
+            linked, deep_ids = pairs[:, 0], pairs[:, 1]
+            if np.unique(linked).size != linked.size:
+                raise AssertionError(f"linking {key}: {var} merged deep objects")
+            ids, n = np.unique(deep_ids, return_counts=True)
+            split = set(ids[n > 1].tolist())
+            if split - split_ok[var]:
+                raise AssertionError(f"linking {key}: {var} split deep objects "
+                                     f"{sorted(split - split_ok[var])[:5]} that overlap in an "
+                                     f"interior by at least {LINK_ATOL} pixels")
+            splits[(key, var)] = len(split)
+            partitions[(key, var)] = dict(zip(linked.tolist(), deep_ids.tolist()))
+    for var in deep_vols:
+        a, b, c = (partitions[(k, var)] for k in ("file", "label", "batch"))
+        if not (_same_partition(a, b) and _same_partition(a, c)):
+            raise AssertionError(f"linking: the linkers' {var} partitions differ")
+    steps = [(int(ds["core_step_label"].values.max()),
+              int(ds["core_step_label"].values[ds["core_step_label"].values > 0].min()))
+             for ds in outs["file"][0]]
+    if any(steps[k][0] >= steps[k + 1][1] for k in range(len(steps) - 1)):
+        raise AssertionError(f"linking: step labels do not rise across the windows {steps}")
+    nan_flagged = {key: int(sum(ds[f"{v}_nan_flag"].values.sum()
+                               for v in ("core", "thick_anvil", "thin_anvil")))
+                   for key, (datasets, _) in outs.items() if key != "batch"
+                   for ds in datasets[1:2]}
+    if min(nan_flagged.values()) == 0:
+        raise AssertionError(f"linking: the NaN frame flagged nothing {nan_flagged}")
+    log(f"linking (b) checks: each linker's labels in bijection with the deep volume's over "
+        f"the owned frames (objects per linker and family: "
+        + ", ".join(f"{k[0]} {k[1].split('_')[0]} {len(p)}" for k, p in partitions.items())
+        + f"); split objects (fewer than {LINK_ATOL} px in a shared interior): "
+        + ", ".join(f"{k[0]} {k[1].split('_')[0]} {n}" for k, n in splits.items())
+        + f" (allowed {[len(v) for v in split_ok.values()]}); the three linkers' partitions "
+        f"equal; every pass within its budget; core step labels rise across the windows "
+        f"(max, min per window {steps}); NaN-flagged objects in window 1 {nan_flagged}; 0 kernel "
+        f"launches; phase {time.perf_counter() - t0:.1f} s")
+    return by_shape
+
+
+def _same_partition(a, b):
+    """Do two {linked label: deep label} maps partition the deep objects
+    alike (a bijection between their labels)?"""
+    inv_a, inv_b = {}, {}
+    for k, v in a.items():
+        inv_a.setdefault(v, set()).add(k)
+    for k, v in b.items():
+        inv_b.setdefault(v, set()).add(k)
+    return sorted(len(s) for s in inv_a.values()) == sorted(len(s) for s in inv_b.values()) \
+        and inv_a.keys() == inv_b.keys()
+
+
+def check_linking_clis():
+    """Phase (c): where h5py cannot be imported (the card's machine has
+    none), each of the four linking CLIs raises naming it before it reads
+    a file or runs a pass."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        log("h5py imports here: the linking CLIs' early check passes")
+        return
+    from tobac_flow_tpu_torch.cli import (
+        combine_dccs, link_dcc_files, linking_parallel, relabel_linked_files,
+    )
+
+    out = ws_sweeps._BUILD_DIR / "link_cli"
+    files = [str(out / linking_window_name(0, 37)), str(out / linking_window_name(37, 74))]
+    for cli_mod, extra in ((link_dcc_files, []), (combine_dccs, []), (linking_parallel, []),
+                           (relabel_linked_files, ["-links", str(out / "links.nc")])):
+        t0 = time.perf_counter()
+        try:
+            cli_mod.main(["-sd", str(out)] + extra + files)
+        except ImportError as err:
+            seconds = time.perf_counter() - t0
+            if "h5py" not in str(err) or seconds > 5 or out.exists():
+                raise AssertionError(f"{cli_mod.__name__} raised after {seconds:.1f} s: {err}")
+            log(f"no h5py here: {cli_mod.__name__.rsplit('.', 1)[1]} raised in {seconds:.3f} s, "
+                f"before any read or pass")
+            continue
+        raise AssertionError(f"{cli_mod.__name__} ran without h5py")
 
 
 def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
@@ -1483,6 +1873,7 @@ def main():
             log(f"ptxas: {line.strip()}")
 
     check_cli_h5py()
+    check_linking_clis()
     worst = check_kernel(device)
     per_shape = time_shape_classes(device, card_line)
 
@@ -1580,12 +1971,15 @@ def main():
     check_chunked_small(device, card_line)
     fit_by_shape = run_chunked_fit(device, card_line)
     deep_launches, deep_by_shape = run_deep(device, card_line)
-    run_deep_chain(device, card_line)
+    # cross-file linking: the recorded windows against the JAX record, then
+    # three windows cut from the deep chain's volumes at the job's frame
+    check_linking_small(device, card_line)
+    link_by_shape = run_deep_linking(run_deep_chain(device, card_line), device, card_line)
     worst = max(worst, check_and_time_new_shapes(
         {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape}, per_shape, device,
         card_line))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
-             "fused_flow_watershed_deep": deep_by_shape}
+             "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape}
 
     for key, row in per_shape.items():
         counts = [c.get(key, 0) for c in paths.values()]
@@ -1611,7 +2005,8 @@ def main():
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
         "per": "one run of each main path (the bench slice, the detection of the "
-               "CONUS-shaped GOES scene and the deep time-chunked slice): the sum over its "
+               "CONUS-shaped GOES scene, the deep time-chunked slice and the linking of three "
+               "windows cut from the deep chain, which floods nothing): the sum over its "
                "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},
         "ms_by_path": {p: per_run("ms", c) for p, c in paths.items()},

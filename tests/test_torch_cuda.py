@@ -310,3 +310,29 @@ def test_park_and_place_on_card(cuda):
     assert vols["read"].device.type == "cuda"
     assert park(vols, set(), cuda, need=0) == []
     assert place(np.ones((4, 8, 8), np.float32), cuda).device.type == "cuda"
+
+
+@pytest.mark.parametrize("budget", ["whole", "chunked"])
+def test_linkers_on_card_equal_cpu(cuda, budget):
+    """FileLinker, LabelLinker and the batch path on the card over the
+    recorded linking windows (from memory) give the CPU's outputs, whole
+    and under a budget that chunks every pass over a volume, and the JAX
+    record's."""
+    from pathlib import Path
+
+    from chip_smoke import (
+        LINK_CHUNK_FRAMES, LINKING_RECORD, _held_to, link_all, linking_record,
+    )
+    from tobac_flow_tpu_torch import device as port_device
+    from tobac_flow_tpu_torch.track.store import MemoryStore
+
+    rec = linking_record(Path(__file__).resolve().parent / "data" / LINKING_RECORD)
+    forced = port_device.frames_budget(LINK_CHUNK_FRAMES) if budget == "chunked" else None
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        store = MemoryStore(dict(zip(rec["names"], rec["windows"])))
+        outs[dev.type] = link_all(rec["names"], store, dev, forced)
+    for key in ("file", "label", "batch"):
+        for i, (card_ds, cpu_ds) in enumerate(zip(outs["cuda"][key][0], outs["cpu"][key][0])):
+            compare_datasets(cpu_ds, card_ds, rtol32=0.0, rtol64=0.0)
+            _held_to(rec[key][i], card_ds, f"{key} window {i}")

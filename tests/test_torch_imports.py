@@ -105,7 +105,10 @@ def test_scan_sees_the_package():
             "utils/labels.py", "utils/stats.py", "data/ncdataset.py", "schema/dataset.py",
             "cli/common.py", "cli/dcc_detect_synthetic.py", "device.py",
             "utils/datetime_utils.py", "utils/geo.py", "data/abi.py", "data/io.py",
-            "data/dataloader.py", "data/dataset_utils.py", "cli/dcc_detect_goes.py"} <= names
+            "data/dataloader.py", "data/dataset_utils.py", "cli/dcc_detect_goes.py",
+            "track/__init__.py", "track/linking.py", "track/file_linker.py", "track/store.py",
+            "cli/link_dcc_files.py", "cli/combine_dccs.py", "cli/linking_parallel.py",
+            "cli/relabel_linked_files.py"} <= names
     # the time-chunked flood and the grouped stages live in these modules
     assert "_watershed_time_chunked" in (PORT / "ops" / "watershed.py").read_text()
     assert "group_size" in (PORT / "pipeline.py").read_text()

@@ -13,7 +13,8 @@ import torch
 from torch.profiler import record_function
 
 __all__ = ["resolve_device", "stage", "memory_budget", "peak_memory", "reset_peak_memory",
-           "group_size", "chunk_plan", "time_chunks", "run_chunked", "park", "place"]
+           "group_size", "chunk_plan", "frames_budget", "time_chunks", "run_chunked", "park",
+           "place"]
 
 # share of the card's memory that a budget leaves free: the caching
 # allocator's fragmentation, the CUDA context and library workspaces
@@ -37,6 +38,13 @@ LINK_BYTES_PER_PX = 95  # segment.label.link_labels_by_overlap: 94.68
 LABEL_TABLE_BYTES_PER_PX = 62  # utils.labels, detect.analysis label passes: 61.01
 OUTPUT_BYTES_PER_PX = 83  # the output stages' per-label reductions: 82.28
 NAN_FLAG_BYTES_PER_PX = 7  # schema.dataset.flag_nan_adjacent_labels: 6.01
+# the cross-file linker's passes (track/), per pixel of the frames of one
+# volume that a pass reads (6 and 12 frames): the pair histogram over a
+# shared interior (both files' frames), a family's lookup (offsets,
+# remaps), and the interior merge
+OVERLAP_BYTES_PER_PX = 66  # track.linking.find_overlap_between_labels: 65.05
+RELABEL_BYTES_PER_PX = 16  # track.file_linker label lookups: 16.00
+MERGE_BYTES_PER_PX = 22  # track.file_linker.combine_labels, merge_labels: 21.22
 MIN_CHUNK_FRAMES = 4  # the smallest time chunk, as the reference's
 
 # the high-water mark of each CUDA device before ``stage``'s last reset of
@@ -116,10 +124,14 @@ def chunk_plan(what, shape, bytes_per_px, device, budget=None, halo=0, out_bytes
     most frames whose chunk and halos fit beside the whole-volume outputs
     (``out_bytes_per_px``), evened out over as many chunks as T needs.
     Raises MemoryError, naming ``what``, the volume and the budget, where
-    not even a ``MIN_CHUNK_FRAMES`` chunk fits."""
+    not even a ``MIN_CHUNK_FRAMES`` chunk fits.  ``budget`` may also be a
+    function of (shape, bytes_per_px, halo, out_bytes_per_px) that gives
+    the bytes (see :func:`frames_budget`)."""
     t = int(shape[0])
     px = math.prod(shape[1:])
     need = bytes_per_px * t * px
+    if callable(budget):
+        budget = budget(shape, bytes_per_px, halo, out_bytes_per_px)
     if budget is None:
         budget = memory_budget(device, need)
     if budget is None or need <= budget:
@@ -132,6 +144,19 @@ def chunk_plan(what, shape, bytes_per_px, device, budget=None, halo=0, out_bytes
     for log in _PLANS:
         log.append((what, t, chunk))
     return chunk
+
+
+def frames_budget(frames):
+    """A ``budget_bytes`` under which every step planned by
+    :func:`chunk_plan` runs in time chunks of at most ``frames`` frames
+    (and no fewer than ``MIN_CHUNK_FRAMES``), whatever its bytes per
+    pixel: a function that gives each step the bytes of that many frames
+    with its halos, beside its whole-volume outputs."""
+    def budget(shape, bytes_per_px, halo, out_bytes_per_px):
+        t, px = int(shape[0]), math.prod(shape[1:])
+        return ((max(frames, MIN_CHUNK_FRAMES) + 2 * halo) * bytes_per_px
+                + out_bytes_per_px * t) * px
+    return budget
 
 
 def time_chunks(t, chunk, halo=0):

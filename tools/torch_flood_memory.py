@@ -22,10 +22,12 @@ against its whole-volume labels: agreement, chunks, passes, floods and
 seconds.
 
 Then (or alone, with ``--stages-only``) each time-chunked stage of the
-detection chain (the ``*_BYTES_PER_PX`` of ``tobac_flow_tpu_torch/
-device.py``) on ``chip_smoke.deep_scene`` at each ``--stage-depths`` T,
-given its CLI-default flow: whole, (peak - allocated before) / (T x H x
-W); and in 4-frame chunks, (peak - before - its whole-volume outputs) /
+detection chain and each pass of the cross-file linker (the
+``*_BYTES_PER_PX`` of ``tobac_flow_tpu_torch/device.py``) on
+``chip_smoke.deep_scene`` at each ``--stage-depths`` T, given its
+CLI-default flow: whole, (peak - allocated before) / (T x H x W), or per
+pixel of the T - 2 interior frames that the linker's pair histogram and
+merge read; and in 4-frame chunks, (peak - before - its whole-volume outputs) /
 ((4 + 2 halos) x H x W), each chunked result checked equal to the whole
 one.  Every figure is printed with the card's name and power limit;
 ``--json PATH`` also writes them to a file.  Run from the repo root.
@@ -56,6 +58,7 @@ from tobac_flow_tpu_torch.detect.detection import get_anvil_markers  # noqa: E40
 from tobac_flow_tpu_torch.ops.ccl import flat_label  # noqa: E402
 from tobac_flow_tpu_torch.ops.convolve import convolve, nanmean0  # noqa: E402
 from tobac_flow_tpu_torch.schema import dataset as schema  # noqa: E402
+from tobac_flow_tpu_torch.track import file_linker, linking  # noqa: E402
 from tobac_flow_tpu_torch.segment.label import link_labels_by_overlap  # noqa: E402
 from tobac_flow_tpu_torch.utils import labels as labels_mod  # noqa: E402
 from tobac_flow_tpu_torch.utils.stats import find_overlap_mode  # noqa: E402
@@ -129,6 +132,23 @@ def stage_rows(t, h, w, dev, line):
     wvd_nan = wvd.clone()
     wvd_nan[t // 2, : h // 4] = float("nan")
     weights = torch.ones((), device=dev)
+    times = chain_times(t)
+    other = torch.where(flat > 0, flat, int(flat.max()) + 1)
+    top = max(int(dense.max()), int(other.max())) + 1
+    lut = (top - torch.arange(top, device=dev)) % top  # a permutation keeping 0
+    interior = np.arange(1, t - 1)
+    merged = set(range(1, int(other.max()) + 1))
+    holes = torch.where(dense % 2 == 0, 0, dense)
+
+    def in_place(fn):
+        """``fn`` on the copy of its volume made before the measurement
+        (the linker's passes write where the volume lies); returns it."""
+        vol = copies.pop()
+        fn(vol)
+        return vol
+
+    copies = []
+    bases = {"RELABEL_BYTES_PER_PX": dense, "MERGE_BYTES_PER_PX": holes}
     # constant -> (call given a budget, halo frames, output bytes per pixel)
     stages = {
         "CONVOLVE_BYTES_PER_TAP_PX": (lambda b: convolve(
@@ -164,11 +184,23 @@ def stage_rows(t, h, w, dev, line):
             ds, b), 0, 0),
         "NAN_FLAG_BYTES_PER_PX": (lambda b: schema.flag_nan_adjacent_labels(
             ds, wvd_nan, b), 1, 0),
+        # the linker's passes: the pair histogram and the merge over the
+        # shared interior (every frame but the first and last of two
+        # volumes on one clock), and a family's lookup, in place
+        "OVERLAP_BYTES_PER_PX": (lambda b: linking.find_overlap_between_labels(
+            dense, times, other, times, device=dev, budget_bytes=b)[2:], 0, 0),
+        "RELABEL_BYTES_PER_PX": (lambda b: in_place(lambda vol: file_linker._map_frames(
+            "relabel_family", vol, None, lambda v: lut[v.long()].to(v.dtype), dev, b)), 0, 0),
+        "MERGE_BYTES_PER_PX": (lambda b: in_place(lambda vol: file_linker._interior_merge(
+            "merge_labels", vol, interior, other, interior, merged, lut, dev, b)), 0, 0),
     }
+    # the frames each pass reads, where not all t
+    frames = {"OVERLAP_BYTES_PER_PX": t - 2, "MERGE_BYTES_PER_PX": t - 2}
     rows = {}
     for name, (call, halo, out_px) in stages.items():
+        copies.extend(bases[name].clone() for _ in range(2) if name in bases)
         whole, peak, sec = measured(lambda: call(NO_BUDGET))
-        row = {"whole": peak / px, "whole_s": sec}
+        row = {"whole": peak / (frames.get(name, t) * h * w), "whole_s": sec}
         constant = getattr(port_device, name.split()[0])
         if name.startswith("CONVOLVE"):
             constant = 27 * constant + 4  # as ops.convolve plans its 27 taps and output
