@@ -76,6 +76,20 @@
    windows in the GOES CLI's layout cut from its volumes, linked by all
    three under the card's own budget: each pass's seconds, peak, budget,
    chunks and links; the labels held to the deep volume's.
+11. Statistics and post-processing, which flood nothing (0 kernel
+   launches; ``run_statistics``).  Where h5py is absent, each of the four
+   statistics CLIs raises naming it before any read or pass.  The three
+   linked windows (the batch path's, their anvils widened, through the
+   detection schema, with the pixel areas, lat and lon of GOES-16's
+   fixed grid) go through ``relabel_postprocess`` (spatial properties
+   on), ``postprocess_dcc`` (CTT and CTH with uncertainties, a flag
+   field's proportions and the TOA net CRE from six fluxes, all made on
+   the card from a seed) and ``dcc_statistics`` from memory on the card
+   under its own budget: each step's seconds, peak against its budget,
+   chunks, and the objects before and after the filters; cores and
+   anvils survive, some valid.  On the middle window's first 9 frames the
+   card's datasets equal the CPU's, and forced chunks (every new pass in
+   at least 3) equal the whole run's.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -102,6 +116,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -112,11 +127,14 @@ from bench import _cell_params, make_markers, make_scene
 from tobac_flow_tpu_torch import device as port_device
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
 from tobac_flow_tpu_torch.cli import common as cli
-from tobac_flow_tpu_torch.cli import dcc_detect_synthetic
+from tobac_flow_tpu_torch.cli import (
+    dcc_detect_synthetic, dcc_statistics, postprocess_dcc, relabel_postprocess,
+)
 from tobac_flow_tpu_torch.data.abi import ABIProjection
 from tobac_flow_tpu_torch.data.dataloader import (
     CHANNELS, fill_time_gap_nan, goes_geometry, mask_mcmip_frame, stack_mcmip,
 )
+from tobac_flow_tpu_torch import schema
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor
 from tobac_flow_tpu_torch.detect import chain as chain_mod
 from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
@@ -1662,7 +1680,9 @@ def run_deep_linking(deep, device, card_line):
     for cores and both anvil families, but for objects with fewer than
     atol pixels in a shared interior (which may split; counted); the
     three linkers give the same partition; every peak within its budget;
-    the step labels rise across the windows."""
+    the step labels rise across the windows.  Returns the kernel's
+    launches by shape, and the windows' names, their datasets and the
+    batch path's relabelled windows (for the statistics phase)."""
     cores, markers, bt, times = deep
     t, h, w = cores.shape
     own = (t - 2 * LINK_PAD) // 3
@@ -1784,7 +1804,7 @@ def run_deep_linking(deep, device, card_line):
         f"equal; every pass within its budget; core step labels rise across the windows "
         f"(max, min per window {steps}); NaN-flagged objects in window 1 {nan_flagged}; 0 kernel "
         f"launches; phase {time.perf_counter() - t0:.1f} s")
-    return by_shape
+    return by_shape, (names, store, outs["batch"][0])
 
 
 def _same_partition(a, b):
@@ -1801,26 +1821,32 @@ def _same_partition(a, b):
 
 def check_linking_clis():
     """Phase (c): where h5py cannot be imported (the card's machine has
-    none), each of the four linking CLIs raises naming it before it reads
-    a file or runs a pass."""
+    none), each of the four linking CLIs and the four statistics CLIs
+    raises naming it before it reads a file or runs a pass."""
     try:
         import h5py  # noqa: F401
     except ImportError:
         pass
     else:
-        log("h5py imports here: the linking CLIs' early check passes")
+        log("h5py imports here: the linking and statistics CLIs' early check passes")
         return
     from tobac_flow_tpu_torch.cli import (
-        combine_dccs, link_dcc_files, linking_parallel, relabel_linked_files,
+        combine_dccs, link_dcc_files, linking_parallel, quick_fix, relabel_linked_files,
     )
 
     out = ws_sweeps._BUILD_DIR / "link_cli"
     files = [str(out / linking_window_name(0, 37)), str(out / linking_window_name(37, 74))]
-    for cli_mod, extra in ((link_dcc_files, []), (combine_dccs, []), (linking_parallel, []),
-                           (relabel_linked_files, ["-links", str(out / "links.nc")])):
+    sd = ["-sd", str(out)]
+    for cli_mod, argv in ((link_dcc_files, sd + files), (combine_dccs, sd + files),
+                          (linking_parallel, sd + files),
+                          (relabel_linked_files, sd + ["-links", str(out / "links.nc")] + files),
+                          (relabel_postprocess, files[:1] + [str(out / "links.nc")] + sd),
+                          (postprocess_dcc, files[:1] + ["-fields", files[1]] + sd),
+                          (quick_fix, files[:1] + ["-src", files[1], "-vars", "ctt"] + sd),
+                          (dcc_statistics, sd + files)):
         t0 = time.perf_counter()
         try:
-            cli_mod.main(["-sd", str(out)] + extra + files)
+            cli_mod.main(argv)
         except ImportError as err:
             seconds = time.perf_counter() - t0
             if "h5py" not in str(err) or seconds > 5 or out.exists():
@@ -1829,6 +1855,344 @@ def check_linking_clis():
                 f"before any read or pass")
             continue
         raise AssertionError(f"{cli_mod.__name__} ran without h5py")
+
+
+# -- statistics and post-processing ---------------------------------------------
+
+STATS_VARS = ("ctt", "cth", "toa_net_cre")  # postprocess_dcc's -vars
+STATS_FLAGS = ("flag",)  # postprocess_dcc's -flags
+STATS_CHECK_FRAMES = 9  # the window cut that the card and the CPU both run
+STATS_CHUNK_FRAMES = 4  # a forced budget's chunks (device.frames_budget)
+# the passes this phase adds, each of which a forced budget must chunk
+STATS_PASSES = ("weighted_label_stats", "weighted_proportions", "label_stats_rows",
+                "label_stats_frames")
+FLUXES = ("toa_swup", "toa_lwup", "boa_swdn", "boa_swup", "boa_lwdn", "boa_lwup")
+
+
+STATS_STEP = ABI_STEP / 8  # the statistics' grid spacing: 7 µrad, about 250 m at nadir
+
+
+def disk_geometry(h, w, step=STATS_STEP):
+    """The float32 lat, lon and pixel area (km²) of (h, w) pixels of
+    GOES-16's fixed grid at ``step`` radians about the sub-satellite
+    point, as ``goes_geometry`` gives them: all on the Earth's disk (an
+    object off the disk has no area, over which the reference's average
+    positions divide by zero).  At ``STATS_STEP`` (an eighth of the 2 km
+    bands' spacing) the deep scene's cells, 46-72 px wide Gaussians at
+    1500x2500, are cores a few thousand km² large, as deep convective
+    cores are; at 2 km every one would exceed ``filter_cores``' 1e4
+    km² cap."""
+    x = (np.arange(w) - (w - 1) / 2) * step
+    y = ((h - 1) / 2 - np.arange(h)) * step
+    return goes_geometry({"y": y, "x": x}, GOES16_PROJECTION)
+
+
+def aux_fields(shape, seed, device):
+    """The auxiliary fields of ``postprocess_dcc``, made from ``seed`` on
+    ``device``: CTT and CTH with uncertainties (a NaN patch in CTT), a flag
+    field with ``flag_values``, and the six fluxes with their clear-sky
+    counterparts and the TOA downwelling flux."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(lo, hi):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    t, h, w = shape
+    ds = Dataset()
+    values = {"ctt": uniform(190, 260), "ctt_uncertainty": uniform(0.5, 3),
+              "cth": uniform(8000, 16000), "cth_uncertainty": uniform(100, 900)}
+    values["ctt"][t // 2, h // 3:h // 2, w // 3:w // 2] = float("nan")
+    for var in FLUXES:
+        values[var], values[f"{var}_clr"] = uniform(50, 900), uniform(50, 900)
+    values["toa_swdn"] = uniform(800, 1300)
+    for name, v in values.items():
+        ds[name] = DataArray(v, dims=("t", "y", "x"), name=name,
+                             attrs={"long_name": name, "units": "W m-2", "valid_max": 1500.0})
+    ds["flag"] = DataArray(torch.randint(0, 4, shape, generator=gen, device=device,
+                                         dtype=torch.int8), dims=("t", "y", "x"), name="flag",
+                           attrs={"flag_values": "0b 1b 2b 3b", "long_name": "flag"})
+    return ds
+
+
+ANVIL_GROWTH = 24  # widen_anvils grows thick anvils by a frame's height / this, in pixels
+
+
+def grow_labels(labels, radius, device):
+    """Each frame's labels grown into their unlabelled neighbours within a
+    (2 radius + 1)^2 square by a separable max filter, on ``device``, 8
+    frames at a time."""
+    out = torch.empty_like(labels, device=device)
+    k = 2 * radius + 1
+    for s, e, _, _ in port_device.time_chunks(labels.shape[0], 8):
+        lab = labels[s:e].to(device)
+        grown = torch.nn.functional.max_pool2d(lab[:, None].float(), (1, k), 1, (0, radius))
+        grown = torch.nn.functional.max_pool2d(grown, (k, 1), 1, (radius, 0))[:, 0]
+        out[s:e] = torch.where(lab > 0, lab, grown.to(lab.dtype))
+    return out
+
+
+def widen_anvils(ds, device):
+    """The window's anvils as a detection's outgrow their cores: the thick
+    ones (the deep chain's anvil markers, which lie within the cores'
+    extent) grown by a frame's height / ``ANVIL_GROWTH`` pixels, the thin
+    ones twice that (``grow_labels``); returns the dataset."""
+    radius = max(1, round(ds["thick_anvil_label"].shape[1] / ANVIL_GROWTH))
+    thick = grow_labels(as_tensor(ds["thick_anvil_label"]), radius, device)
+    ds["thin_anvil_label"].data = grow_labels(thick, 2 * radius, device)
+    ds["thick_anvil_label"].data = thick
+    return ds
+
+
+def detection_window(ds, name, geometry, device, budget=None):
+    """A window's detection dataset as the GOES CLI writes it, on
+    ``device``: its label volumes and BT through the output stages' schema
+    (label coordinates, core-anvil links, step labels, edge, start, end and
+    NaN flags over the window's owned period), with the grid's lat, lon
+    and pixel areas (``disk_geometry``)."""
+    for var in ("core_label", "thick_anvil_label", "thin_anvil_label"):
+        ds[var].data = as_tensor(ds[var], device)
+    for var in ("lat", "lon", "area"):
+        ds[var] = DataArray(as_tensor(geometry[var], device), dims=("y", "x"))
+    start, end = get_dates_from_filename(name)
+    ds = schema.add_label_coords(ds, budget)
+    schema.link_cores_and_anvils(ds, budget_bytes=budget)
+    schema.add_step_labels(ds, budget)
+    ds = schema.add_label_coords(ds, budget)
+    schema.link_step_labels(ds, budget)
+    schema.flag_edge_labels(ds, start, end)
+    schema.flag_nan_adjacent_labels(ds, ds["bt"], budget)
+    return ds
+
+
+def statistics_chain(windows, links, fields, device, budget=None, log_steps=None):
+    """relabel_postprocess (with the spatial properties), postprocess_dcc
+    (``STATS_VARS`` with the CRE fields, ``STATS_FLAGS``) and
+    dcc_statistics from memory on ``device``: ``windows`` {name:
+    detection dataset}, ``fields(name)`` the auxiliary field dataset of a
+    window (made when its turn comes, dropped after).  With
+    ``log_steps`` (a list), each step appends (what, seconds, bytes over
+    its start at its peak, the budget at its start, stage stats).  Returns
+    ({name: post-processed dataset}, the statistics dataset)."""
+    cuda = device.type == "cuda"
+
+    def step(what, fn):
+        room = start = 0
+        if cuda:
+            torch.cuda.synchronize()
+            room = port_device.memory_budget(device)
+            start = torch.cuda.memory_allocated(device)
+            port_device.reset_peak_memory(device)
+        stats, t0 = {}, time.perf_counter()
+        out = fn(stats)
+        if cuda:
+            torch.cuda.synchronize()
+        if log_steps is not None:
+            peak = port_device.peak_memory(device) if cuda else 0
+            log_steps.append((what, time.perf_counter() - t0, peak - start, room, stats))
+        return out
+
+    done = {}
+    for name, ds in windows.items():
+        ds = step(f"relabel_postprocess {name}", lambda st: relabel_postprocess.relabel_postprocess(
+            ds, links, name, True, device, budget, st))
+        aux = fields(name)
+        ds = step(f"postprocess_dcc {name}", lambda st: postprocess_dcc.postprocess_dataset(
+            ds, aux, STATS_VARS, True, STATS_FLAGS, device, budget, st))
+        del aux
+        done[name] = ds.load()  # its volumes wait on the host
+    first = next(iter(done.values()))
+    keep = dcc_statistics.statistics_variables(first)
+    table = step("dcc_statistics", lambda st: dcc_statistics.dcc_statistics(
+        [dcc_statistics.subset(ds, keep) for ds in done.values()], device, st))
+    return done, table
+
+
+def _cut(ds, frames):
+    """The first ``frames`` frames of a window's label volumes and BT."""
+    out = Dataset(coords={"t": ds.coords["t"][:frames], "y": ds.coords["y"],
+                          "x": ds.coords["x"]})
+    for var in ("core_label", "thick_anvil_label", "thin_anvil_label", "bt"):
+        out[var] = DataArray(as_tensor(ds[var])[:frames].clone(), dims=("t", "y", "x"))
+    return out
+
+
+def _fields_on(fields, device):
+    out = Dataset()
+    for name, var in fields.data_vars.items():
+        out[name] = DataArray(as_tensor(var, device), dims=var.dims, name=name,
+                              attrs=dict(var.attrs))
+    return out
+
+
+def _held_equal(want, got, what, rtol32=1e-5):
+    """``got`` (datasets by name, and a table) equal to ``want`` by
+    ``compare_datasets``: float64 to rtol 1e-12, float32 means and stds to
+    ``rtol32``, the rest identical."""
+    for key in want:
+        try:
+            compare_datasets(want[key].load(), got[key].load(), rtol32=rtol32)
+        except AssertionError as err:
+            raise AssertionError(f"statistics: {what}, {key}: {err}") from None
+
+
+def identity_links(windows):
+    """A links dataset in ``process_linking_output``'s layout that maps
+    each window's labels (``windows``: {name: dataset}) to themselves, for
+    windows whose labels are already linked."""
+    def top(ds, names):
+        return max(int(as_tensor(ds[n]).max()) for n in names)
+
+    counts = {"core": [top(ds, ("core_label",)) for ds in windows.values()],
+              "anvil": [top(ds, ("thick_anvil_label", "thin_anvil_label"))
+                        for ds in windows.values()]}
+    links = Dataset(coords={"filename": np.asarray(list(windows), dtype=object)})
+    for key, n in counts.items():
+        links[f"{key}_start"] = DataArray(np.cumsum([0] + n[:-1]).astype(np.int64),
+                                          dims=("filename",))
+        links[f"{key}_labels"] = DataArray(np.concatenate(
+            [np.arange(1, k + 1) for k in n]).astype(np.int32), dims=(key,))
+    return links
+
+
+def run_statistics(linked, device, card_line):
+    """The statistics phase, over the linking phase's three windows as the
+    batch path relabelled them (linked labels, every frame of a window,
+    the BT), their anvils widened (``widen_anvils``), each through the
+    detection schema (``detection_window``; its
+    step labels 1..n, as the reference's per-step statistics need them):
+    on the card under its own budget, per window
+    ``relabel_postprocess`` (relabelled through links that keep the linked
+    labels, label properties, spatial properties, per-step BT
+    statistics) and ``postprocess_dcc`` (CTT and CTH with uncertainties,
+    the flag proportions and the TOA net CRE from the fluxes, over the
+    (H, W) pixel areas of ``disk_geometry``), then ``dcc_statistics`` over
+    the three.  Logs each step's seconds, peak over its start against the
+    budget at its start, chunks, and the objects before and after the
+    filters.  Checks: on the middle window's first ``STATS_CHECK_FRAMES``
+    frames, the card's datasets equal the CPU's and, under a budget that
+    runs each of ``STATS_PASSES`` in at least 3 chunks, the whole run's;
+    every peak within its budget; 0 kernel launches; at least one core and
+    one anvil survive the filters, and one of each is valid."""
+    names, store, relabelled = linked
+    t0 = time.perf_counter()
+    h, w = store[names[0]]["core_label"].shape[1:]
+    geometry = disk_geometry(h, w)
+    for ds in relabelled:
+        widen_anvils(ds, device)
+    cut_name = names[1]
+    cut = detection_window(widen_anvils(_cut(store[cut_name], STATS_CHECK_FRAMES), device),
+                           cut_name, geometry, device)
+    store.clear()  # the linking phase's windows leave the card
+    # each window's volumes wait on the host until its turn
+    windows = {name: detection_window(ds, name, geometry, device).load()
+               for name, ds in zip(names, relabelled)}
+    links = identity_links(windows)
+    cut_links = identity_links({cut_name: cut})
+    cut_copy = MemoryStore({cut_name: cut})
+    torch.cuda.synchronize()
+    shape = tuple(relabelled[0]["core_label"].shape)
+    log(f"statistics: the batch path's 3 relabelled windows {shape} "
+        f"and the middle window's first {STATS_CHECK_FRAMES} frames through the detection schema "
+        f"on the card, with the grid's pixel areas, in {time.perf_counter() - t0:.1f} s")
+
+    # the cut's run on the CPU goes on in a thread, on the host's cores,
+    # while the card works (torch's ops release the GIL)
+    cut_fields = aux_fields(tuple(cut["core_label"].shape), 20, device)
+    runs = {}
+
+    def run_cut(what, dev, budget=None):
+        ds = cut_copy.open(cut_name)
+        for var in ("bt", "area", "lat", "lon"):
+            ds[var] = DataArray(as_tensor(cut[var], dev), dims=cut[var].dims)
+        fields_there = _fields_on(cut_fields, dev)
+        t3 = time.perf_counter()
+        out, tab = statistics_chain({cut_name: ds}, cut_links, lambda _: fields_there, dev,
+                                    budget)
+        runs[what] = ({cut_name: out[cut_name], "statistics": tab}, time.perf_counter() - t3)
+
+    def run_cpu():
+        try:
+            run_cut("cpu", torch.device("cpu"))
+        except BaseException as err:  # raised again once the card's work is done
+            runs["cpu_error"] = err
+
+    cpu_leg = threading.Thread(target=run_cpu, name="statistics-cpu")
+    cpu_leg.start()
+
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def fields(name):
+        return aux_fields(tuple(windows[name]["core_label"].shape), 10 + names.index(name),
+                          device)
+
+    steps = []
+    t1 = time.perf_counter()
+    done, table = statistics_chain(windows, links, fields, device, None, steps)
+    seconds = time.perf_counter() - t1
+    launches, by_shape = read_counts()
+    if launches:
+        raise AssertionError(f"statistics launched the ws_sweeps kernel {launches} times")
+    over = [(what, grew, room) for what, _, grew, room, _ in steps if grew > room]
+    for what, sec, grew, room, stats in steps:
+        chunks = {k[:-len("_chunks")]: v for k, v in stats.items() if k.endswith("_chunks")}
+        log(f"statistics {what} [{card_line}]: {sec:.3f} s, peak {grew / 2**30:.3f} GiB over "
+            f"its start (budget {room / 2**30:.1f} GiB); " + ", ".join(
+                f"{k[:-2]} {v:.3f} s" for k, v in stats.items() if k.endswith("_s"))
+            + f"; most chunks {chunks or 1}")
+    if over:
+        raise AssertionError(f"statistics: peaks over budget {over}")
+    before = {k: sum(ds.coords[k].size for ds in done.values()) for k in ("core", "anvil")}
+    after = {k: table.coords[k].size for k in ("core", "anvil")}
+    valid = {"core": int(table["core_is_valid"].values.sum()),
+             "anvil": int(table["thick_anvil_is_valid"].values.sum())}
+    if min(after.values()) == 0 or min(valid.values()) == 0:
+        raise AssertionError(f"statistics: objects after the filters {after}, valid {valid}")
+    for name, ds in done.items():
+        for var in ("core_ctt_mean", "thick_anvil_toa_net_cre_mean",
+                    "core_step_flag_proportion"):
+            if var not in ds.data_vars:
+                raise AssertionError(f"statistics: {name} lacks {var}")
+    log(f"statistics [{card_line}]: 3 windows of {tuple(windows[names[0]]['core_label'].shape)} "
+        f"post-processed in {seconds:.3f} s ({seconds / 3:.3f} s a window, "
+        + ", ".join(f"{sum(s for what, s, *_ in steps if what.startswith(cli)):.3f} s {cli}"
+                    for cli in ("relabel_postprocess", "postprocess_dcc")) + ", "
+        f"{steps[-1][1]:.3f} s dcc_statistics, the CPU's check running beside them); objects "
+        f"before the filters (summed over the windows) {before}, after {after}, valid {valid}; "
+        f"0 kernel launches")
+    del done, table, windows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card against the CPU, and forced chunks against whole, on the cut
+    t2 = time.perf_counter()
+    run_cut("card", device)
+    cpu_leg.join()
+    if "cpu_error" in runs:
+        raise runs["cpu_error"]
+    waited = time.perf_counter() - t2 - runs["card"][1]
+    plans = []
+    port_device._PLANS.append(plans)
+    try:
+        run_cut("chunked", device, port_device.frames_budget(STATS_CHUNK_FRAMES))
+    finally:
+        port_device._PLANS[:] = [p for p in port_device._PLANS if p is not plans]
+    fewest = {p: min((-(-t // c) for what, t, c in plans if what == p), default=0)
+              for p in STATS_PASSES}
+    if min(fewest.values()) < 3:
+        raise AssertionError(f"statistics: a new pass ran in fewer than 3 chunks {fewest}")
+    _held_equal(runs["cpu"][0], runs["card"][0], "card against CPU")
+    _held_equal(runs["card"][0], runs["chunked"][0], "chunked against whole")
+    log(f"statistics checks on window 1's first {STATS_CHECK_FRAMES} frames "
+        f"{tuple(cut['core_label'].shape)} [{card_line}]: the card's datasets equal the CPU's "
+        f"(float64 to rtol 1e-12, float32 means and stds to 1e-5, the rest identical) and, with "
+        f"every new pass in at least 3 chunks (fewest {fewest}), the whole run's; card "
+        f"{runs['card'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s (in a thread from the phase's "
+        f"start; {waited:.1f} s waited for after the card's), chunked "
+        f"{runs['chunked'][1]:.1f} s; phase {time.perf_counter() - t0:.1f} s "
+        f"({time.perf_counter() - t2:.1f} s of it after the windows)")
+    return by_shape
 
 
 def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
@@ -1974,12 +2338,17 @@ def main():
     # cross-file linking: the recorded windows against the JAX record, then
     # three windows cut from the deep chain's volumes at the job's frame
     check_linking_small(device, card_line)
-    link_by_shape = run_deep_linking(run_deep_chain(device, card_line), device, card_line)
+    link_by_shape, linked = run_deep_linking(run_deep_chain(device, card_line), device,
+                                             card_line)
+    # statistics and post-processing of the linked windows
+    stats_by_shape = run_statistics(linked, device, card_line)
+    del linked
     worst = max(worst, check_and_time_new_shapes(
         {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape}, per_shape, device,
         card_line))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
-             "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape}
+             "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape,
+             "statistics": stats_by_shape}
 
     for key, row in per_shape.items():
         counts = [c.get(key, 0) for c in paths.values()]
@@ -2005,8 +2374,9 @@ def main():
         "library_ms": None,
         "library_note": "no single PyTorch call computes this function",
         "per": "one run of each main path (the bench slice, the detection of the "
-               "CONUS-shaped GOES scene, the deep time-chunked slice and the linking of three "
-               "windows cut from the deep chain, which floods nothing): the sum over its "
+               "CONUS-shaped GOES scene, the deep time-chunked slice, the linking of three "
+               "windows cut from the deep chain and their statistics, which flood nothing): "
+               "the sum over its "
                "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},
         "ms_by_path": {p: per_run("ms", c) for p, c in paths.items()},

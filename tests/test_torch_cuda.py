@@ -336,3 +336,65 @@ def test_linkers_on_card_equal_cpu(cuda, budget):
         for i, (card_ds, cpu_ds) in enumerate(zip(outs["cuda"][key][0], outs["cpu"][key][0])):
             compare_datasets(cpu_ds, card_ds, rtol32=0.0, rtol64=0.0)
             _held_to(rec[key][i], card_ds, f"{key} window {i}")
+
+
+@pytest.mark.parametrize("budget", ["whole", "chunked"])
+def test_postprocess_passes_on_card_equal_cpu(cuda, budget):
+    """``weighted_label_stats`` with uncertainties over (H, W) weights, the
+    weighted flag proportions and ``get_label_stats`` on the card give the
+    CPU's results (float64 to rtol 1e-12, the rest identical), whole and
+    under a budget that runs every pass in at least 3 chunks."""
+    from tobac_flow_tpu_torch import device as port_device
+    from tobac_flow_tpu_torch.detect.analysis import get_label_stats
+    from tobac_flow_tpu_torch.schema.postprocess import (
+        get_weighted_proportions_da, weighted_label_stats,
+    )
+
+    rng = np.random.default_rng(12)
+    shape = (12, 96, 128)
+    labels = ndi.label(ndi.uniform_filter(rng.random(shape), 5) > 0.52)[0].astype(np.int32)
+    field = rng.normal(225, 12, shape).astype(np.float32)
+    field[3, 10:40, 20:60] = np.nan
+    errors = rng.uniform(0.5, 3, shape).astype(np.float32)
+    flags = rng.integers(0, 4, shape).astype(np.int8)
+    area = rng.uniform(3.5, 4.5, shape[1:])
+    index = np.arange(1, int(labels.max()) + 2)
+    forced = port_device.frames_budget(4) if budget == "chunked" else None
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ds = Dataset()
+        ds["ctt"] = DataArray(torch.as_tensor(field, device=dev), dims=("t", "y", "x"))
+        ds["ctt_uncertainty"] = DataArray(torch.as_tensor(errors, device=dev),
+                                          dims=("t", "y", "x"))
+        lab = torch.as_tensor(labels, device=dev)
+        w = torch.as_tensor(area, device=dev)
+        stats = {}
+        with port_device.stage("post", stats, dev):
+            res = Dataset()
+            for da in weighted_label_stats(lab, w, ds, "ctt", index, "core", uncertainty=True,
+                                           budget_bytes=forced):
+                res[da.name] = da
+            flag = DataArray(torch.as_tensor(flags, device=dev), dims=("t", "y", "x"),
+                             name="flag", attrs={"flag_values": "0b 1b 2b 3b"})
+            res["p"] = get_weighted_proportions_da(flag, w, lab, "core", index=index,
+                                                   budget_bytes=forced)
+            get_label_stats(DataArray(lab, dims=("t", "y", "x"), name="core_label"), res,
+                            forced)
+        if budget == "chunked":
+            assert stats["post_chunks"] >= 3
+        out[dev.type] = res.load()
+    compare_datasets(out["cpu"], out["cuda"], rtol32=0.0)
+
+
+def test_bin_sums_on_card_equal_cpu_bitwise(cuda):
+    """The pairwise per-bin sums have the same bits on the card as on the
+    CPU, so per-label sums (and what is derived from them, as rates from
+    per-step means) agree exactly."""
+    from tobac_flow_tpu_torch.utils.labels import bin_sums
+
+    rng = np.random.default_rng(3)
+    for m, n in ((1, 2), (100000, 7), (3000000, 5000)):
+        bins = torch.as_tensor(rng.integers(0, n, m))
+        values = torch.as_tensor(rng.normal(225, 9, m))
+        assert torch.equal(bin_sums(values.to(cuda), bins.to(cuda), n).cpu(),
+                           bin_sums(values, bins, n))

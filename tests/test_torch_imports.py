@@ -108,10 +108,13 @@ def test_scan_sees_the_package():
             "data/dataloader.py", "data/dataset_utils.py", "cli/dcc_detect_goes.py",
             "track/__init__.py", "track/linking.py", "track/file_linker.py", "track/store.py",
             "cli/link_dcc_files.py", "cli/combine_dccs.py", "cli/linking_parallel.py",
-            "cli/relabel_linked_files.py"} <= names
+            "cli/relabel_linked_files.py", "utils/filters.py", "schema/postprocess.py",
+            "cli/relabel_postprocess.py", "cli/postprocess_dcc.py", "cli/quick_fix.py",
+            "cli/dcc_statistics.py"} <= names
     # the time-chunked flood and the grouped stages live in these modules
     assert "_watershed_time_chunked" in (PORT / "ops" / "watershed.py").read_text()
     assert "group_size" in (PORT / "pipeline.py").read_text()
-    # the GOES ingest's output dataset
+    # the GOES ingest's output dataset, and the statistics of a field
     assert "def create_new_goes_ds" in (PORT / "schema" / "dataset.py").read_text()
+    assert "def get_bulk_stats" in (PORT / "schema" / "dataset.py").read_text()
     assert "tobac_flow_tpu" in set(_imported_roots(ast.parse("import tobac_flow_tpu.ops")))

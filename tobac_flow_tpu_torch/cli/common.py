@@ -155,7 +155,7 @@ def prepare_output(dataset: Dataset, bt, wvd, swd, start_date=None, end_date=Non
             calculate_label_properties(dataset, budget)
     if opts.save_spatial_props:
         for name in ("core_label", "thick_anvil_label", "thin_anvil_label"):
-            get_label_stats(dataset[name], dataset)
+            get_label_stats(dataset[name], dataset, budget)
     if opts.save_field_props:
         if "area" in dataset:
             weights = as_tensor(dataset["area"], dev)

@@ -9,7 +9,9 @@ import numpy as np
 import torch
 
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, as_tensor
-from tobac_flow_tpu_torch.device import LABEL_TABLE_BYTES_PER_PX
+from tobac_flow_tpu_torch.device import (
+    LABEL_STATS_BYTES_PER_PX, LABEL_TABLE_BYTES_PER_PX, chunk_plan, time_chunks,
+)
 from tobac_flow_tpu_torch.utils.labels import LabelSegments, SegmentChunks
 
 __all__ = [
@@ -67,31 +69,51 @@ def n_unique_along_axis(a, axis=0):
     return changes.sum(dim=0)
 
 
-def get_label_stats(da, ds):
+def get_label_stats(da, ds, budget_bytes=None):
     """Spatial and temporal coverage of a label DataArray, added to ``ds``
-    as the reference names them; the fields stay on the labels' device."""
+    as the reference names them, on the labels' device: per pixel the
+    share of frames labelled and the number of distinct labels over time
+    (over blocks of rows, each with every frame), per frame the share of
+    pixels labelled and the number of distinct labels (over time chunks);
+    both sized by ``device.chunk_plan`` from ``LABEL_STATS_BYTES_PER_PX``
+    within ``budget_bytes`` (``None``: ``device.memory_budget``, whole on
+    the CPU).  A volume that waits on the host moves a block at a time."""
     vals = as_tensor(da)
-    t_size = vals.shape[0]
+    t_size, h, w = vals.shape
+    dev = vals.device
     long_name = da.attrs.get("long_name", da.name)
-    nonzero = vals != 0
+    fraction = torch.empty((h, w), dtype=torch.float32, device=dev)
+    unique = torch.empty((h, w), dtype=torch.int32, device=dev)
+    rows = chunk_plan("label_stats_rows", (h, t_size, w), LABEL_STATS_BYTES_PER_PX, dev,
+                      budget_bytes)
+    for r0, r1, _, _ in time_chunks(h, rows):
+        block = vals[:, r0:r1].to(dev)
+        fraction[r0:r1] = ((block != 0).sum(0).double() / t_size).float()
+        unique[r0:r1] = n_unique_along_axis(block, 0).int()
+        del block
+    temporal_fraction = torch.empty(t_size, dtype=torch.float32, device=dev)
+    temporal_unique = torch.empty(t_size, dtype=torch.int32, device=dev)
+    frames = chunk_plan("label_stats_frames", tuple(vals.shape), LABEL_STATS_BYTES_PER_PX, dev,
+                        budget_bytes)
+    for s, e, _, _ in time_chunks(t_size, frames):
+        chunk = vals[s:e].to(dev).reshape(e - s, -1)
+        temporal_fraction[s:e] = ((chunk != 0).sum(1).double() / (h * w)).float()
+        temporal_unique[s:e] = n_unique_along_axis(chunk, 1).int()
+        del chunk
     ds[f"{da.name}_fraction"] = DataArray(
-        (nonzero.sum(0).double() / t_size).float(),
-        dims=("y", "x"),
+        fraction, dims=("y", "x"),
         attrs={"long_name": f"Fractional coverage of {long_name}", "units": ""},
     )
     ds[f"{da.name}_unique_count"] = DataArray(
-        n_unique_along_axis(vals, 0).int(),
-        dims=("y", "x"),
+        unique, dims=("y", "x"),
         attrs={"long_name": f"Number of unique {long_name}", "units": ""},
     )
     ds[f"{da.name}_temporal_fraction"] = DataArray(
-        (nonzero.sum((1, 2)).double() / (vals.shape[1] * vals.shape[2])).float(),
-        dims=("t",),
+        temporal_fraction, dims=("t",),
         attrs={"long_name": f"Fractional coverage of {long_name} over time", "units": ""},
     )
     ds[f"{da.name}_temporal_unique_count"] = DataArray(
-        n_unique_along_axis(vals.reshape(t_size, -1), 1).int(),
-        dims=("t",),
+        temporal_unique, dims=("t",),
         attrs={"long_name": f"Number of unique {long_name} over time", "units": ""},
     )
 
@@ -139,7 +161,8 @@ def weighted_statistics_on_labels(labels, da, weights, name=None, dim=None, dtyp
     ss = None
     for s, e, seg in segs:
         x, w, valid = pixels(s, e, seg)
-        part = seg.sum(w.double() * (x.double() - mean[seg.bins]) ** 2, valid)
+        dev = x.double() - mean[seg.bins]
+        part = seg.sum(w.double() * (dev * dev), valid)
         ss = part if ss is None else ss + part
     stats = [mean, torch.sqrt(ss / sw), hi, lo]
     out = []

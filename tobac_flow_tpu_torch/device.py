@@ -36,7 +36,7 @@ CONVOLVE_BYTES_PER_TAP_PX = 14  # ops.convolve.convolve, per tap: 13.06
 LABEL_BYTES_PER_PX = 62  # ops.ccl.flat_label, utils.labels.make_step_labels: 61.01
 LINK_BYTES_PER_PX = 95  # segment.label.link_labels_by_overlap: 94.68
 LABEL_TABLE_BYTES_PER_PX = 62  # utils.labels, detect.analysis label passes: 61.01
-OUTPUT_BYTES_PER_PX = 83  # the output stages' per-label reductions: 82.28
+OUTPUT_BYTES_PER_PX = 95  # the output stages' per-label reductions: 94.07 (pairwise sums)
 NAN_FLAG_BYTES_PER_PX = 7  # schema.dataset.flag_nan_adjacent_labels: 6.01
 # the cross-file linker's passes (track/), per pixel of the frames of one
 # volume that a pass reads (6 and 12 frames): the pair histogram over a
@@ -45,6 +45,12 @@ NAN_FLAG_BYTES_PER_PX = 7  # schema.dataset.flag_nan_adjacent_labels: 6.01
 OVERLAP_BYTES_PER_PX = 66  # track.linking.find_overlap_between_labels: 65.05
 RELABEL_BYTES_PER_PX = 16  # track.file_linker label lookups: 16.00
 MERGE_BYTES_PER_PX = 22  # track.file_linker.combine_labels, merge_labels: 21.22
+# the post-processing passes, on labels that cover every pixel: the
+# weighted label statistics with uncertainties and the weighted flag
+# proportions (schema.postprocess), and detect.analysis.get_label_stats
+# (per pixel of a row block or time chunk)
+POSTPROCESS_BYTES_PER_PX = 87  # weighted_label_stats: 86.03; proportions: 62.05
+LABEL_STATS_BYTES_PER_PX = 20  # get_label_stats: 19.10
 MIN_CHUNK_FRAMES = 4  # the smallest time chunk, as the reference's
 
 # the high-water mark of each CUDA device before ``stage``'s last reset of

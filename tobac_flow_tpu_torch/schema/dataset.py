@@ -42,6 +42,9 @@ __all__ = [
     "flag_edge_labels",
     "flag_nan_adjacent_labels",
     "calculate_label_properties",
+    "get_bulk_stats",
+    "get_spatial_stats",
+    "get_temporal_stats",
 ]
 
 
@@ -62,6 +65,70 @@ def _contains(label_values, *volumes):
     the tensors ``volumes``?"""
     found = unique_labels(torch.cat([v.reshape(-1) for v in volumes]))
     return np.isin(label_values, found)
+
+
+# -- bulk, spatial and temporal statistics of a field -------------------------
+
+
+def _reduce(x, stat, skip_nan=True):
+    """``stat`` ("mean", "std", "median", "max" or "min") of a tensor over
+    its last axis, in float64, as numpy's ``nan*`` functions give it
+    (``skip_nan``; std with ddof 0) or, for the median alone, as
+    ``np.median``, NaN wherever a NaN is among the values.  The median
+    sorts (NaN last) and averages the two middle values."""
+    n = x.shape[-1]
+    nan = torch.isnan(x) if x.is_floating_point() else torch.zeros_like(x, dtype=torch.bool)
+    k = (~nan).sum(-1)
+    x64 = x.double()
+    if stat in ("mean", "std"):
+        mean = torch.where(nan, 0.0, x64).sum(-1) / k
+        if stat == "mean":
+            return mean
+        dev = torch.where(nan, 0.0, (x64 - mean.unsqueeze(-1)) ** 2)
+        return torch.sqrt(dev.sum(-1) / k)
+    if stat in ("max", "min"):
+        fill = -torch.inf if stat == "max" else torch.inf
+        kept = torch.where(nan, fill, x64)
+        out = kept.amax(-1) if stat == "max" else kept.amin(-1)
+        return torch.where(k > 0, out, torch.nan)
+    ordered = torch.sort(x64, dim=-1).values
+    count = k if skip_nan else torch.full_like(k, n)
+    lo = ((count - 1) // 2).clamp(min=0).unsqueeze(-1)
+    hi = (count // 2).clamp(max=max(n - 1, 0)).unsqueeze(-1)
+    median = (ordered.gather(-1, lo) + ordered.gather(-1, hi)).squeeze(-1) / 2
+    empty = count == 0 if skip_nan else nan.any(-1) | (count == 0)
+    return torch.where(empty, torch.nan, median)
+
+
+def _stat_block(ds, da, values, dims, suffix_fmt, skip_nan_median):
+    """The five statistics of ``values`` (``da``'s data, its reduced axes
+    last) added to ``ds`` in ``da``'s dtype, where ``da`` lies."""
+    long_name = da.attrs.get("long_name", da.name)
+    units = da.attrs.get("units", "")
+    for stat in ("mean", "std", "median", "max", "min"):
+        out = _reduce(values, stat, skip_nan_median or stat != "median")
+        _add(
+            ds, suffix_fmt.format(name=da.name, stat=stat), out.to(values.dtype), dims,
+            long_name=f"{stat} of {long_name}", units=units,
+        )
+
+
+def get_bulk_stats(ds, da):
+    """Mean, std, median (``np.median``: NaN where a value is NaN), max and
+    min of the whole field."""
+    _stat_block(ds, da, as_tensor(da).reshape(-1), (), "{name}_{stat}", False)
+
+
+def get_spatial_stats(ds, da):
+    """The NaN-skipping statistics of each frame, over (y, x)."""
+    x = as_tensor(da)
+    _stat_block(ds, da, x.reshape(x.shape[0], -1), ("t",), "{name}_spatial_{stat}", True)
+
+
+def get_temporal_stats(ds, da):
+    """The NaN-skipping statistics of each pixel, over t."""
+    _stat_block(ds, da, torch.movedim(as_tensor(da), 0, -1), ("y", "x"),
+                "{name}_temporal_{stat}", True)
 
 
 def create_new_goes_ds(goes_ds):

@@ -3,7 +3,7 @@ the detection chain's chunked stages, on one NVIDIA GPU.
 
     python3 tools/torch_flood_memory.py [--height 1500] [--width 2500]
         [--depths 6,12,24] [--chunked-depth 24] [--flow-depth 12]
-        [--stage-depths 6,12] [--stages-only] [--json PATH]
+        [--stage-depths 6,12] [--stages-only] [--only PREFIXES] [--json PATH]
 
 For each depth T, on ``bench.make_scene(T, H, W)`` with ``make_markers``:
 
@@ -22,16 +22,19 @@ against its whole-volume labels: agreement, chunks, passes, floods and
 seconds.
 
 Then (or alone, with ``--stages-only``) each time-chunked stage of the
-detection chain and each pass of the cross-file linker (the
-``*_BYTES_PER_PX`` of ``tobac_flow_tpu_torch/device.py``) on
+detection chain, each pass of the cross-file linker and of the
+post-processing (the ``*_BYTES_PER_PX`` of
+``tobac_flow_tpu_torch/device.py``) on
 ``chip_smoke.deep_scene`` at each ``--stage-depths`` T, given its
 CLI-default flow: whole, (peak - allocated before) / (T x H x W), or per
 pixel of the T - 2 interior frames that the linker's pair histogram and
-merge read; and in 4-frame chunks, (peak - before - its whole-volume outputs) /
+merge read; and in 4-frame chunks (``get_label_stats``: row blocks and time
+chunks of as many pixels), (peak - before - its whole-volume outputs) /
 ((4 + 2 halos) x H x W), each chunked result checked equal to the whole
-one.  Every figure is printed with the card's name and power limit;
-``--json PATH`` also writes them to a file.  Run from the repo root.
-Imports no JAX.
+one (float64 sums to rtol 1e-12); ``--only`` keeps the stages whose
+constants start with its prefixes.  Every figure is printed with the
+card's name and power limit; ``--json PATH`` also writes them to a
+file.  Run from the repo root.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from tobac_flow_tpu_torch.detect.detection import get_anvil_markers  # noqa: E40
 from tobac_flow_tpu_torch.ops.ccl import flat_label  # noqa: E402
 from tobac_flow_tpu_torch.ops.convolve import convolve, nanmean0  # noqa: E402
 from tobac_flow_tpu_torch.schema import dataset as schema  # noqa: E402
+from tobac_flow_tpu_torch.schema import postprocess  # noqa: E402
 from tobac_flow_tpu_torch.track import file_linker, linking  # noqa: E402
 from tobac_flow_tpu_torch.segment.label import link_labels_by_overlap  # noqa: E402
 from tobac_flow_tpu_torch.utils import labels as labels_mod  # noqa: E402
@@ -90,15 +94,20 @@ def _equal(a, b):
     if isinstance(a, (tuple, list)):
         return all(_equal(x, y) for x, y in zip(a, b))
     if isinstance(a, DataArray):
-        return _equal(torch.as_tensor(a.values), torch.as_tensor(b.values))
+        a, b = np.asarray(a.values), np.asarray(b.values)
+        if a.dtype == np.float64:
+            return _equal(a, b)
+        return _equal(torch.as_tensor(a), torch.as_tensor(b))
     if isinstance(a, np.ndarray):
+        if a.dtype == np.float64:  # float64 sums over chunks: another order of adds
+            return np.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True)
         return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
     if a.is_floating_point():
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
     return torch.equal(a, b)
 
 
-def stage_rows(t, h, w, dev, line):
+def stage_rows(t, h, w, dev, line, only=None):
     """Bytes per pixel of each chunked stage at (t, h, w), whole and per
     chunk frame: {constant: {"whole": B/px, "chunked": B/px, "s": ...}}."""
     opts = DetectionOptions()
@@ -139,6 +148,17 @@ def stage_rows(t, h, w, dev, line):
     interior = np.arange(1, t - 1)
     merged = set(range(1, int(other.max()) + 1))
     holes = torch.where(dense % 2 == 0, 0, dense)
+    area = torch.rand((h, w), generator=torch.Generator(dev).manual_seed(1), device=dev) + 3.5
+    fields = schema.Dataset()
+    fields["bt"] = bt_da
+    fields["bt_uncertainty"] = DataArray(bt * 0.01, dims=("t", "y", "x"))
+    flag = DataArray((bt % 4).to(torch.int8), dims=("t", "y", "x"), name="flag",
+                     attrs={"flag_values": "0b 1b 2b 3b"})
+
+    def label_stats(b):
+        out = schema.Dataset()
+        analysis.get_label_stats(label_da, out, b)
+        return tuple(out.data_vars.values())
 
     def in_place(fn):
         """``fn`` on the copy of its volume made before the measurement
@@ -184,6 +204,14 @@ def stage_rows(t, h, w, dev, line):
             ds, b), 0, 0),
         "NAN_FLAG_BYTES_PER_PX": (lambda b: schema.flag_nan_adjacent_labels(
             ds, wvd_nan, b), 1, 0),
+        # the post-processing passes: weighted statistics with uncertainties
+        # over (H, W) weights, weighted flag proportions, coverage statistics
+        "POSTPROCESS_BYTES_PER_PX statistics": (lambda b: postprocess.weighted_label_stats(
+            dense, area, fields, "bt", ds.coords["core"], "anvil", uncertainty=True,
+            budget_bytes=b), 0, 0),
+        "POSTPROCESS_BYTES_PER_PX proportions": (lambda b: postprocess.get_weighted_proportions_da(
+            flag, area, dense, "anvil", index=ds.coords["core"], budget_bytes=b), 0, 0),
+        "LABEL_STATS_BYTES_PER_PX": (label_stats, 0, 0),
         # the linker's passes: the pair histogram and the merge over the
         # shared interior (every frame but the first and last of two
         # volumes on one clock), and a family's lookup, in place
@@ -198,6 +226,8 @@ def stage_rows(t, h, w, dev, line):
     frames = {"OVERLAP_BYTES_PER_PX": t - 2, "MERGE_BYTES_PER_PX": t - 2}
     rows = {}
     for name, (call, halo, out_px) in stages.items():
+        if only and not name.startswith(tuple(only)):
+            continue
         copies.extend(bases[name].clone() for _ in range(2) if name in bases)
         whole, peak, sec = measured(lambda: call(NO_BUDGET))
         row = {"whole": peak / (frames.get(name, t) * h * w), "whole_s": sec}
@@ -228,6 +258,8 @@ def main(argv=None):
     ap.add_argument("--flow-depth", type=int, default=12,
                     help="the deepest T whose flow stage runs as one group")
     ap.add_argument("--stage-depths", default="6,12")
+    ap.add_argument("--only", default="",
+                    help="comma-separated prefixes of the constants whose stages to measure")
     ap.add_argument("--stages-only", action="store_true",
                     help="measure the chain's chunked stages alone")
     ap.add_argument("--json", help="also write the numbers to this file")
@@ -303,7 +335,8 @@ def main(argv=None):
                 "flood_plain_bytes_per_px", "flood_mixed_bytes_per_px"):
         if any(key in r for r in rows):
             summary[f"max_{key}"] = max(r[key] for r in rows if key in r)
-    stage_runs = [stage_rows(t, h, w, dev, line) for t in
+    only = [p for p in args.only.split(",") if p]
+    stage_runs = [stage_rows(t, h, w, dev, line, only) for t in
                   (int(d) for d in args.stage_depths.split(",") if d)]
     summary["stages"] = stage_runs
     for name in stage_runs[0] if stage_runs else ():
