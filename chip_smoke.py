@@ -90,6 +90,25 @@
    anvils survive, some valid.  On the middle window's first 9 frames the
    card's datasets equal the CPU's, and forced chunks (every new pass in
    at least 3) equal the whole run's.
+12. Validation against GLM lightning, which floods nothing (0 kernel
+   launches; ``run_validation``).  Seeded flashes over the three windows
+   (at pixels inside the cores and the thick anvils, and false ones),
+   gridded on the card by ``regrid_glm`` with parallax correction, then
+   ``validate_cores`` and ``validate_anvils`` (thick and thin) on every
+   window and the with-anvils and with-cores variants on the middle one,
+   under the card's own budget: each step's seconds (the transforms, the
+   per-object reductions, the binning), peak against its budget and
+   chunks, the flashes, POD and FAR and the depth validation reaches.
+   Checks: the counts equal numpy's ``histogram2d``; the transform equals
+   scipy's on whole frames; on a 9x375x625 cut the card equals the CPU;
+   forced chunks equal the whole run; POD in (0, 1], FAR in [0, 1].
+13. The SEVIRI native ingest and detection (``run_seviri``): 8 full-disk
+   3712x3712 native archives (9 scans 15 minutes apart, one missing),
+   written with ``write_nat`` in 8 threads, decoded and cropped to
+   448x448 by ``seviri_nat_dataloader`` (timed per file), then
+   ``dcc_detect_seviri_nat``'s detection on the card: the gap is one NaN
+   frame, every stage finds objects, and its kernel launches join the
+   kernels line under their own path.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -118,6 +137,7 @@ import subprocess
 import sys
 import threading
 import time
+from datetime import datetime, timedelta
 from pathlib import Path
 
 import numpy as np
@@ -128,14 +148,17 @@ from tobac_flow_tpu_torch import device as port_device
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow
 from tobac_flow_tpu_torch.cli import common as cli
 from tobac_flow_tpu_torch.cli import (
-    dcc_detect_synthetic, dcc_statistics, postprocess_dcc, relabel_postprocess,
+    dcc_detect_seviri_nat, dcc_detect_synthetic, dcc_statistics, dcc_validation, postprocess_dcc,
+    relabel_postprocess,
 )
 from tobac_flow_tpu_torch.data.abi import ABIProjection
 from tobac_flow_tpu_torch.data.dataloader import (
     CHANNELS, fill_time_gap_nan, goes_geometry, mask_mcmip_frame, stack_mcmip,
 )
 from tobac_flow_tpu_torch import schema
+from tobac_flow_tpu_torch.data import glm
 from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset, as_tensor
+from tobac_flow_tpu_torch.data.seviri_nat import decode_nat, seviri_nat_dataloader, write_nat
 from tobac_flow_tpu_torch.detect import chain as chain_mod
 from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions
@@ -150,6 +173,8 @@ from tobac_flow_tpu_torch.utils.datetime_utils import (
     get_dates_from_filename, trim_file_start_and_end,
 )
 from tobac_flow_tpu_torch.utils.labels import unique_labels
+from tobac_flow_tpu_torch.ops.morphology import distance_transform_edt
+from tobac_flow_tpu_torch.validate import validation
 from tools.parity_detect import make_multistorm_scene
 
 SMALL = (8, 160, 224)
@@ -258,6 +283,33 @@ T_START = time.perf_counter()
 
 def log(msg):
     print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
+
+
+class prefetched:
+    """``fn(*args)`` computed in a thread beside the card's work (host
+    scenes and files): calling the object waits for it, raises what it
+    raised, and gives (its result, the seconds it took, the seconds
+    waited for it)."""
+
+    def __init__(self, fn, *args):
+        self.out = {}
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        t0 = time.perf_counter()
+        try:
+            self.out["value"] = fn(*args)
+        except BaseException as err:  # raised again by the caller
+            self.out["error"] = err
+        self.out["seconds"] = time.perf_counter() - t0
+
+    def __call__(self):
+        t0 = time.perf_counter()
+        self.thread.join()
+        if "error" in self.out:
+            raise self.out["error"]
+        return self.out["value"], self.out["seconds"], time.perf_counter() - t0
 
 
 def card():
@@ -398,13 +450,19 @@ def check_kernel(device):
     return worst
 
 
-def time_shape_classes(device, card_line, classes=SHAPE_CLASSES):
+def time_shape_classes(device, card_line, classes=SHAPE_CLASSES, inputs=None):
     """Kernel ms per launch with its inputs cold in L2 and, where one
     launch fits in L2, warm; plain ms; and the bound, at every shape class
-    (connectivity 1, from the live state of ``sweep_inputs``)."""
-    rows = {}
+    (connectivity 1, from the live state of ``sweep_inputs``, one set per
+    shape, or ``inputs[shape]`` where given)."""
+    rows, made = {}, {}
     for shape, k in classes:
-        args = sweep_inputs(shape, 1, device)
+        if inputs and shape in inputs:
+            args = inputs[shape]
+        else:
+            if shape not in made:
+                made = {shape: sweep_inputs(shape, 1, device)}  # one shape's set at a time
+            args = made[shape]
         sets = cold_sets(args)
 
         def launch(*a):
@@ -556,16 +614,51 @@ def chain_inputs(bt, wvd, swd, times):
     return fields, Dataset(coords=coords)
 
 
-def check_chain_small(device, card_line):
+CPU_LEG_THREADS = 4  # a worker process's intra-op threads, beside the card's host thread
+
+
+def cpu_detection(fields, ds, fwd, bwd):
+    """``cli.run_detection`` on the CPU given the flows (numpy), with the
+    anvil markers and spatial properties saved: the CPU side of a
+    card-against-CPU check, run in a worker process (``cpu_legs``)."""
+    torch.set_num_threads(CPU_LEG_THREADS)
+    flow = Flow(torch.from_numpy(fwd), torch.from_numpy(bwd))
+    opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
+                            flow_factory=lambda _: flow)
+    return cli.run_detection(*fields, ds, opts=opts, device="cpu")
+
+
+class cpu_legs:
+    """A spawned worker process that runs the CPU sides of the small
+    card-against-CPU checks while the card goes on with the next phases:
+    ``submit`` gives a future; leaving the block stops the process."""
+
+    def __enter__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        return self
+
+    def submit(self, fn, *args):
+        return self.pool.submit(fn, *args)
+
+    def __exit__(self, *exc):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+
+def check_chain_small(device, card_line, legs):
     """``cli.common.run_detection`` on the card against the CPU at
     CHAIN_SMALL.  Flows: the CPU tests' tolerance inside the storm mask on
     every frame where the CPU reproduces its own CLI-default flow from the
     card's Farneback flows.  Given the same flows, the datasets (labels of
     every stage, anvil markers and spatial properties included) are the
     same: identical but the float means and stds, which are held to the
-    CPU tests' tolerance; and no stage is empty.  Returns the scene (its
-    fields with the NaN patch and times), the card's flow and the card's
-    dataset."""
+    CPU tests' tolerance; and no stage is empty.  The CPU's run goes on in
+    ``legs``' worker process.  Returns the scene (its fields with the NaN
+    patch and times), the card's flow, the card's dataset, and a function
+    that waits for the CPU's dataset and checks it against the card's."""
     opts = DetectionOptions()
     bt, wvd, swd = make_multistorm_scene(*CHAIN_SMALL)
     times = chain_times(CHAIN_SMALL[0])
@@ -595,22 +688,25 @@ def check_chain_small(device, card_line):
         f"tolerance on the {checked} of {2 * CHAIN_SMALL[0]} frames the CPU reproduces, "
         f"max |card - CPU| there {worst:.3g} px")
     wvd[3:6, 20:26, 40:46] = np.nan  # missing data at a cell's edge, as the CPU tests
-    out = {}
-    for where, flow in (("card", gpu), ("cpu", Flow(gpu.forward_flow.cpu(),
-                                                     gpu.backward_flow.cpu()))):
-        fields, ds = chain_inputs(bt, wvd, swd, times)
-        opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
-                                flow_factory=lambda _, flow=flow: flow)
-        out[where] = cli.run_detection(*fields, ds, opts=opts,
-                                       device=None if where == "card" else "cpu")
-    counts = {name: int(out["cpu"][name].values.max()) for name in CHAIN_LABELS}
-    if min(counts.values()) == 0 or min(out["cpu"].coords[c].size for c in CLI_COORDS) == 0:
-        raise AssertionError(f"chain small: an empty stage: {counts}")
-    worst = compare_datasets(out["cpu"], out["card"])
-    log(f"chain small {CHAIN_SMALL}: cli.run_detection on the card gives the CPU's dataset "
-        f"given the same flows ({len(out['cpu'].data_vars)} variables; float32 means and "
-        f"stds within {worst:.3g}, the rest identical); objects {counts}")
-    return (bt, wvd, swd, times), gpu, out["card"]
+    cpu_run = legs.submit(cpu_detection, *chain_inputs(bt, wvd, swd, times),
+                          gpu.forward_flow.cpu().numpy(), gpu.backward_flow.cpu().numpy())
+    fields, ds = chain_inputs(bt, wvd, swd, times)
+    opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
+                            flow_factory=lambda _: gpu)
+    card_out = cli.run_detection(*fields, ds, opts=opts)
+
+    def finish():
+        cpu_out = cpu_run.result()
+        counts = {name: int(cpu_out[name].values.max()) for name in CHAIN_LABELS}
+        if min(counts.values()) == 0 or min(cpu_out.coords[c].size for c in CLI_COORDS) == 0:
+            raise AssertionError(f"chain small: an empty stage: {counts}")
+        worst = compare_datasets(cpu_out, card_out)
+        log(f"chain small {CHAIN_SMALL}: cli.run_detection on the card gives the CPU's "
+            f"dataset given the same flows ({len(cpu_out.data_vars)} variables; float32 means "
+            f"and stds within {worst:.3g}, the rest identical; the CPU's run in a worker "
+            f"process beside the card's next phases); objects {counts}")
+
+    return (bt, wvd, swd, times), gpu, card_out, finish
 
 
 # netCDF's own attributes of a variable read from a file
@@ -805,36 +901,42 @@ def check_field_stats(out, fields, what):
     return checked
 
 
-def check_goes_small(device, card_line):
+def check_goes_small(device, card_line, legs):
     """``cli.common.run_detection`` on the card against the CPU on the CPU
     tests' GOES scene (GOES_SMALL less GOES_SMALL_MISSING, with its NaN
     frame, masks and area weights), given the same (the card's) flows: the
     same dataset, as ``check_chain_small`` holds the synthetic scene, and
-    no stage empty."""
+    no stage empty.  The CPU's run goes on in ``legs``' worker process;
+    returns a function that waits for it and checks."""
     fields, ds = goes_ingest(*goes_frames(GOES_SMALL, GOES_SMALL_MISSING, GOES_SMALL_ORIGIN))
     flow = create_flow(fields[0].values, vr_steps=1, smoothing_passes=1, interp_method="cubic")
     if flow.device.type != device.type:
         raise AssertionError(f"create_flow ran on {flow.device}, not on the card")
-    out = {}
-    for where, given in (("card", flow), ("cpu", Flow(flow.forward_flow.cpu(),
-                                                       flow.backward_flow.cpu()))):
-        opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
-                                flow_factory=lambda _, given=given: given)
-        out[where] = cli.run_detection(*fields, Dataset(data_vars=ds.data_vars, coords=ds.coords),
-                                       opts=opts, device=None if where == "card" else "cpu")
-    counts = {name: int(out["cpu"][name].values.max()) for name in CHAIN_LABELS}
-    if min(counts.values()) == 0 or min(out["cpu"].coords[c].size for c in CLI_COORDS) == 0:
-        raise AssertionError(f"GOES small: an empty stage: {counts}")
-    worst = compare_datasets(out["cpu"], out["card"])
-    checked = check_field_stats(out["card"], fields, "GOES small")
-    log(f"GOES small {fields[0].shape} (from {GOES_SMALL} less frames {GOES_SMALL_MISSING}): "
-        f"cli.run_detection on the card gives the CPU's dataset given the same flows "
-        f"({len(out['cpu'].data_vars)} variables; float32 means and stds within {worst:.3g}, "
-        f"the rest identical); objects {counts}; area-weighted statistics finite for the "
-        f"{checked} (object, field) pairs with non-NaN pixels")
+    cpu_run = legs.submit(cpu_detection, fields, Dataset(data_vars=ds.data_vars, coords=ds.coords),
+                          flow.forward_flow.cpu().numpy(), flow.backward_flow.cpu().numpy())
+    opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
+                            flow_factory=lambda _: flow)
+    card_out = cli.run_detection(*fields, Dataset(data_vars=ds.data_vars, coords=ds.coords),
+                                 opts=opts)
+
+    def finish():
+        cpu_out = cpu_run.result()
+        counts = {name: int(cpu_out[name].values.max()) for name in CHAIN_LABELS}
+        if min(counts.values()) == 0 or min(cpu_out.coords[c].size for c in CLI_COORDS) == 0:
+            raise AssertionError(f"GOES small: an empty stage: {counts}")
+        worst = compare_datasets(cpu_out, card_out)
+        checked = check_field_stats(card_out, fields, "GOES small")
+        log(f"GOES small {fields[0].shape} (from {GOES_SMALL} less frames "
+            f"{GOES_SMALL_MISSING}): cli.run_detection on the card gives the CPU's dataset given "
+            f"the same flows ({len(cpu_out.data_vars)} variables; float32 means and stds within "
+            f"{worst:.3g}, the rest identical; the CPU's run in a worker process); objects "
+            f"{counts}; area-weighted statistics finite for the {checked} (object, field) pairs "
+            f"with non-NaN pixels")
+
+    return finish
 
 
-def run_goes(device, card_line):
+def run_goes(device, card_line, scene=None):
     """The CONUS-shaped GOES run: GOES_FULL less GOES_MISSING through the
     port's ingest (8 real frames and 1 NaN frame of 1500x2500, DQF-masked
     pixels, lat, lon and pixel areas), then ``cli.common.run_detection``
@@ -845,9 +947,12 @@ def run_goes(device, card_line):
     the card's dataset.  Returns (launches, launches by shape, the run's
     record for ``check_chunked_goes``: the chain's stage calls and floods
     (``recorded_stages``), its dataset, the label volumes its output stages
-    started from, its fields and output dataset)."""
+    started from, its fields and output dataset).  ``scene``: the scene's
+    frames being made beside the earlier phases (``prefetched``)."""
     t0 = time.perf_counter()
-    times, frames, x, y = goes_frames(GOES_FULL, GOES_MISSING)
+    if scene is None:
+        scene = prefetched(goes_frames, GOES_FULL, GOES_MISSING)
+    (times, frames, x, y), made, _ = scene()
     t1 = time.perf_counter()
     fields, ds = goes_ingest(times, frames, x, y)
     del frames
@@ -858,7 +963,8 @@ def run_goes(device, card_line):
     area = ds["area"].values
     off_disk = np.isnan(area)
     log(f"GOES scene {GOES_FULL} less frames {GOES_MISSING}: made on the host in "
-        f"{t1 - t0:.1f} s, through the port's ingest (mask, stack, NaN gap fill, geometry) in "
+        f"{made:.1f} s ({t1 - t0:.1f} s waited for), through the port's ingest (mask, stack, "
+        f"NaN gap fill, geometry) in "
         f"{t2 - t1:.1f} s: {bt.shape}, NaN frames {nan_frames}, NaN pixels (bt, wvd, swd) "
         f"{nan_px}, off the disk {int(off_disk.sum())} pixels, times "
         f"{str(fields[0].coords['t'][0])[:19]} .. {str(fields[0].coords['t'][-1])[:19]}, lat "
@@ -1072,33 +1178,53 @@ def run_chunked_fit(device, card_line):
     return by_shape
 
 
-def run_deep(device, card_line):
-    """``fused_flow_watershed`` at JOB_FRAME and DEEP_OVER_FIT times the most
-    frames the card floods whole (FLOOD_BYTES_PER_PX and the resident
-    inputs against the free memory), in at least 3 time chunks.  Returns
-    (launches, launches by shape)."""
+# held through the deep flood: bt, the flows (8 B each), growth, edges and
+# markers (4 B), the mask (1 B) and the labels (4 B)
+DEEP_RESIDENT_BYTES_PER_PX = 4 + 16 + 4 + 4 + 4 + 1 + 4
+
+
+def deep_shape(device):
+    """(the deep main path's shape, the frames the card floods whole, the
+    budget): DEEP_OVER_FIT times the most frames of JOB_FRAME that the
+    card's budget floods whole."""
     h, w = JOB_FRAME
     torch.cuda.empty_cache()
     budget = port_device.memory_budget(device)
-    # held through the flood: bt, the flows (8 B each), growth, edges and
-    # markers (4 B), the mask (1 B) and the labels (4 B)
-    resident = 4 + 16 + 4 + 4 + 4 + 1 + 4
-    fit = budget // ((ws.FLOOD_BYTES_PER_PX[False] + resident) * h * w)
-    t = int(math.ceil(DEEP_OVER_FIT * fit))
-    shape = (t, h, w)
+    fit = budget // ((ws.FLOOD_BYTES_PER_PX[False] + DEEP_RESIDENT_BYTES_PER_PX) * h * w)
+    return (int(math.ceil(DEEP_OVER_FIT * fit)), h, w), fit, budget
+
+
+def deep_inputs(shape):
+    """The deep main path's scene and markers."""
+    bt = job_scene(*shape)
+    return bt, make_markers(bt)
+
+
+def run_deep(device, card_line, scene=None):
+    """``fused_flow_watershed`` at JOB_FRAME and DEEP_OVER_FIT times the most
+    frames the card floods whole (FLOOD_BYTES_PER_PX and the resident
+    inputs against the free memory), in at least 3 time chunks.  ``scene``:
+    (the shape it is for, its inputs being made beside the earlier phases,
+    ``prefetched``), used where the shape is this run's.  Returns
+    (launches, launches by shape)."""
+    shape, fit, budget = deep_shape(device)
+    t, h, w = shape
+    resident = DEEP_RESIDENT_BYTES_PER_PX
     total = torch.cuda.get_device_properties(device).total_memory
     if t * h * w * ws.FLOOD_BYTES_PER_PX[False] <= total:
         raise AssertionError(f"deep main path: {shape} would flood whole in {total} bytes")
     own = ws.chunk_frames(t, h, w, budget - t * h * w * resident, False)
     chunk = min(own, -(-t // 3))
     t0 = time.perf_counter()
-    bt = job_scene(*shape)
-    markers, n = make_markers(bt)
+    if scene is None or scene[0] != shape:
+        scene = (shape, prefetched(deep_inputs, shape))
+    (bt, (markers, n)), made, _ = scene[1]()
     log(f"deep main path: the card floods at most {fit} frames of {JOB_FRAME} whole "
         f"({budget / 2**30:.1f} GiB budget of {total / 2**30:.1f} GiB, "
         f"{ws.FLOOD_BYTES_PER_PX[False]} + {resident} B/px); "
         f"running {shape} ({np.prod(shape) / 1e6:.0f} Mpx, {n} markers, made on the host in "
-        f"{time.perf_counter() - t0:.1f} s); the card's own budget would give "
+        f"{made:.1f} s, {time.perf_counter() - t0:.1f} s waited for); the card's own budget "
+        f"would give "
         f"{-(-t // own)} chunks of {own} frames, this run {-(-t // chunk)} of {chunk}")
     bt_dev = torch.from_numpy(bt).to(device)
     del bt
@@ -1261,7 +1387,7 @@ def check_chunked_chain_small(small, card_line):
     the card (``small``: its fields, flow and dataset): identical
     datasets, anvil markers included; the floods stay whole at 9 frames.
     Returns the chunked run's launches by shape."""
-    (bt, wvd, swd, times), flow, whole = small
+    (bt, wvd, swd, times), flow, whole = small[:3]
     fields, ds = chain_inputs(bt, wvd, swd, times)
     opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
                             flow_factory=lambda _: flow)
@@ -1821,8 +1947,9 @@ def _same_partition(a, b):
 
 def check_linking_clis():
     """Phase (c): where h5py cannot be imported (the card's machine has
-    none), each of the four linking CLIs and the four statistics CLIs
-    raises naming it before it reads a file or runs a pass."""
+    none), each of the four linking CLIs, the four statistics CLIs and
+    the six validation and SEVIRI CLIs raises naming it before it reads a
+    file or runs a pass."""
     try:
         import h5py  # noqa: F401
     except ImportError:
@@ -1831,7 +1958,8 @@ def check_linking_clis():
         log("h5py imports here: the linking and statistics CLIs' early check passes")
         return
     from tobac_flow_tpu_torch.cli import (
-        combine_dccs, link_dcc_files, linking_parallel, quick_fix, relabel_linked_files,
+        combine_dccs, dcc_detect_seviri, fix_seviri_dccs, grid_glm, link_dcc_files,
+        linking_parallel, quick_fix, relabel_linked_files, seviri_cre_time_series,
     )
 
     out = ws_sweeps._BUILD_DIR / "link_cli"
@@ -1843,7 +1971,13 @@ def check_linking_clis():
                           (relabel_postprocess, files[:1] + [str(out / "links.nc")] + sd),
                           (postprocess_dcc, files[:1] + ["-fields", files[1]] + sd),
                           (quick_fix, files[:1] + ["-src", files[1], "-vars", "ctt"] + sd),
-                          (dcc_statistics, sd + files)):
+                          (dcc_statistics, sd + files),
+                          (dcc_validation, files[:1] + ["-glm", files[1]] + sd),
+                          (grid_glm, files[:1] + ["-glm", str(out)] + sd),
+                          (dcc_detect_seviri_nat, sd + [str(out / "a.nat")]),
+                          (dcc_detect_seviri, files + sd),
+                          (fix_seviri_dccs, sd + files),
+                          (seviri_cre_time_series, files + sd)):
         t0 = time.perf_counter()
         try:
             cli_mod.main(argv)
@@ -2072,7 +2206,10 @@ def run_statistics(linked, device, card_line):
     frames, the card's datasets equal the CPU's and, under a budget that
     runs each of ``STATS_PASSES`` in at least 3 chunks, the whole run's;
     every peak within its budget; 0 kernel launches; at least one core and
-    one anvil survive the filters, and one of each is valid."""
+    one anvil survive the filters, and one of each is valid.  The CPU's
+    run of the cut goes on in a thread; returns the kernel's launches by
+    shape, the windows through the detection schema (for validation) and
+    a function that finishes the cut's checks once that run is done."""
     names, store, relabelled = linked
     t0 = time.perf_counter()
     h, w = store[names[0]]["core_label"].shape[1:]
@@ -2161,59 +2298,503 @@ def run_statistics(linked, device, card_line):
         f"{steps[-1][1]:.3f} s dcc_statistics, the CPU's check running beside them); objects "
         f"before the filters (summed over the windows) {before}, after {after}, valid {valid}; "
         f"0 kernel launches")
-    del done, table, windows
+    del done, table
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the card against the CPU, and forced chunks against whole, on the cut
+    def finish():
+        """The card against the CPU, and forced chunks against whole, on
+        the cut, once the CPU's run (in its thread) is done."""
+        t2 = time.perf_counter()
+        run_cut("card", device)
+        cpu_leg.join()
+        if "cpu_error" in runs:
+            raise runs["cpu_error"]
+        waited = time.perf_counter() - t2 - runs["card"][1]
+        plans = []
+        port_device._PLANS.append(plans)
+        try:
+            run_cut("chunked", device, port_device.frames_budget(STATS_CHUNK_FRAMES))
+        finally:
+            port_device._PLANS[:] = [p for p in port_device._PLANS if p is not plans]
+        fewest = {p: min((-(-t // c) for what, t, c in plans if what == p), default=0)
+                  for p in STATS_PASSES}
+        if min(fewest.values()) < 3:
+            raise AssertionError(f"statistics: a new pass ran in fewer than 3 chunks {fewest}")
+        _held_equal(runs["cpu"][0], runs["card"][0], "card against CPU")
+        _held_equal(runs["card"][0], runs["chunked"][0], "chunked against whole")
+        log(f"statistics checks on window 1's first {STATS_CHECK_FRAMES} frames "
+            f"{tuple(cut['core_label'].shape)} [{card_line}]: the card's datasets equal the "
+            f"CPU's (float64 to rtol 1e-12, float32 means and stds to 1e-5, the rest "
+            f"identical) and, with every new pass in at least 3 chunks (fewest {fewest}), the "
+            f"whole run's; card {runs['card'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s (in a "
+            f"thread from the phase's start, beside the validation phase; {waited:.1f} s "
+            f"waited for after the card's), chunked {runs['chunked'][1]:.1f} s; "
+            f"{time.perf_counter() - t2:.1f} s for the checks")
+
+    return by_shape, windows, finish
+
+
+# -- validation against GLM lightning -------------------------------------------
+
+VALIDATE_CHECK = (9, 375, 625)  # the cut that the card and the CPU both validate
+VALIDATE_CHUNKED_FRAMES = 16  # the cut that forced chunks validate (4 chunks of 4)
+SCIPY_FRAMES = 3  # frames a window's transform is held to scipy's on
+# flashes a frame: at pixels drawn inside cores and inside thick anvils, and
+# false flashes uniform over the grid
+GLM_PER_FRAME = {"core": 20, "thick_anvil": 10, "false": 10}
+# the bytes per pixel that validation keeps whole beside a chunk: the three
+# int32 label volumes, the int32 flash grid, the edge filter and the two
+# float64 distance grids
+VALIDATE_RESIDENT_BYTES_PER_PX = 3 * 4 + 4 + 1 + 2 * 8
+
+
+def same_bits(a, b):
+    """Two numpy arrays equal bit for bit, with their dtypes and shapes."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def stats_grid(h, w, step=STATS_STEP):
+    """The (y, x) scan angles of ``disk_geometry``'s grid."""
+    return ((h - 1) / 2 - np.arange(h)) * step, (np.arange(w) - (w - 1) / 2) * step
+
+
+def glm_flashes(ds, seed, device):
+    """GLM flashes over a window (``ds``: its core and thick anvil labels
+    and times) on ``disk_geometry``'s grid, made from ``seed``: per frame
+    ``GLM_PER_FRAME`` flashes at pixels drawn (on ``device``) inside the
+    cores and the thick anvils, and false ones uniform over the grid, each
+    at a uniform point of its pixel and a uniform time inside the frame's
+    bin; their lat and lon from the grid's scan angles.  Returns (times,
+    lats, lons) as numpy."""
+    t, h, w = ds["core_label"].shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    labels = {name: as_tensor(ds[f"{name}_label"], device) for name in ("core", "thick_anvil")}
+    picks, frames = [], []
+    for i in range(t):
+        for name in ("core", "thick_anvil"):
+            inside = torch.nonzero(labels[name][i].reshape(-1) > 0)[:, 0]
+            if inside.numel():
+                n = GLM_PER_FRAME[name]
+                picks.append(inside[torch.randint(inside.numel(), (n,), generator=gen,
+                                                  device=device)])
+                frames += [i] * n
+        picks.append(torch.randint(h * w, (GLM_PER_FRAME["false"],), generator=gen,
+                                   device=device))
+        frames += [i] * GLM_PER_FRAME["false"]
+    flat = torch.cat(picks).cpu().numpy()
+    frames = np.asarray(frames)
+    rng = np.random.default_rng(seed)
+    y, x = stats_grid(h, w)
+    ys = y[flat // w] + rng.uniform(-0.5, 0.5, flat.size) * STATS_STEP
+    xs = x[flat % w] + rng.uniform(-0.5, 0.5, flat.size) * STATS_STEP
+    lat, lon = ABIProjection(**GOES16_PROJECTION).to_latlon(xs, ys)
+    times = np.asarray(ds.coords["t"])[frames] + rng.uniform(-149, 149, flat.size).astype(
+        "timedelta64[s]")
+    return times, lat, lon
+
+
+def glm_grid_ds(ds):
+    """The fixed-grid dataset of a window (its times and ``stats_grid``'s
+    scan angles) that ``regrid_glm`` grids onto."""
+    t, h, w = ds["core_label"].shape
+    y, x = stats_grid(h, w)
+    grid = Dataset(coords={"t": np.asarray(ds.coords["t"]), "y": y, "x": x})
+    grid["goes_imager_projection"] = DataArray(np.zeros((), np.int32), dims=(),
+                                               attrs=dict(GOES16_PROJECTION))
+    return grid
+
+
+def host_counts(grid, times, lat, lon):
+    """numpy's ``histogram2d`` of the flashes' parallax-corrected scan
+    angles per time bin, rows flipped back (y decreases): the reference's
+    counts, to hold the card's binning to."""
+    proj = ABIProjection(**GOES16_PROJECTION)
+    lat_c, lon_c = glm.get_glm_parallax_offsets(lat, lon, sat_lon=proj.lon0,
+                                                sat_height=proj.h - proj.req)
+    fx, fy = proj.to_xy(lat_c, lon_c)
+    y, x = grid.coords["y"], grid.coords["x"]
+    t_bins = glm._time_bins(np.asarray(grid.coords["t"]))
+    tidx = np.searchsorted(t_bins, times, side="right") - 1
+    out = np.zeros((len(t_bins) - 1, y.size, x.size), np.int32)
+    for ti in np.unique(tidx[(tidx >= 0) & (tidx < len(t_bins) - 1)]):
+        sel = tidx == ti
+        counts, _, _ = np.histogram2d(fy[sel], fx[sel], bins=[glm._edges(y)[::-1],
+                                                              glm._edges(x)])
+        out[ti] = counts[::-1]
+    return out
+
+
+def validation_window(ds, device, frames=slice(None), rows=slice(None), cols=slice(None)):
+    """A detection window's labels (cut to ``frames``, ``rows``, ``cols``)
+    with its times, label coordinates and core-anvil index, the labels on
+    ``device``: what the validation entry points read."""
+    t = np.asarray(ds.coords["t"])[frames]
+    out = Dataset(coords={"t": t, "core": ds.coords["core"], "anvil": ds.coords["anvil"]})
+    for var in ("core_label", "thick_anvil_label", "thin_anvil_label"):
+        out[var] = DataArray(as_tensor(ds[var])[frames, rows, cols].to(device).clone(),
+                             dims=("t", "y", "x"))
+    out["core_anvil_index"] = DataArray(np.asarray(ds["core_anvil_index"].values),
+                                        dims=("core",))
+    return out
+
+
+def validate_all(ds, glm_grid, device, budget=None, both=False, step=None):
+    """Cores, thick and thin anvils (and, with ``both``, cores within
+    anvils and anvils with cores) validated on ``device``: ``step(what,
+    fn)`` runs each (``fn(stats)``), by default untimed.  Returns the
+    dataset and the marker and flash distance grids of the cores (on the
+    host) where ``both``."""
+    step = step or (lambda what, fn: fn(None))
+    step("validate_cores", lambda st: validation.validate_cores(
+        ds, glm_grid, device=device, budget_bytes=budget, stats=st))
+    for thick in (True, False):
+        step(f"validate_anvils {'thick' if thick else 'thin'}",
+             lambda st: validation.validate_anvils(ds, glm_grid, thick=thick, device=device,
+                                                   budget_bytes=budget, stats=st))
+    grids = None
+    if both:
+        step("validate_cores_with_anvils", lambda st: validation.validate_cores_with_anvils(
+            ds, glm_grid, device=device, budget_bytes=budget, stats=st))
+        step("validate_anvils_with_cores", lambda st: validation.validate_anvils_with_cores(
+            ds, glm_grid, device=device, budget_bytes=budget, stats=st))
+        edge = validation.get_edge_filter(ds, device=device)
+        out = validation.validate_markers(ds["core_label"], glm_grid, None, edge, device=device,
+                                          budget_bytes=budget)
+        grids = (out[0].cpu(), out[1].cpu())
+    return ds, grids
+
+
+def _validated_equal(want, got, what):
+    """Two validation runs' datasets and grids identical: the datasets'
+    attrs (NaN equal to NaN), their per-object distances bit for bit, the
+    grids bit for bit."""
+    (a, grids_a), (b, grids_b) = want, got
+    same = {k: (x == b.attrs.get(k) or (x != x and b.attrs.get(k) != b.attrs.get(k)))
+            for k, x in a.attrs.items()}
+    if set(a.attrs) != set(b.attrs) or not all(same.values()):
+        raise AssertionError(f"validation {what}: attrs differ {a.attrs} != {b.attrs}")
+    for name in ("core_glm_distance", "thick_anvil_glm_distance", "thin_anvil_glm_distance"):
+        if not same_bits(np.asarray(a[name].values), np.asarray(b[name].values)):
+            raise AssertionError(f"validation {what}: {name} differs")
+    for x, y in zip(grids_a or (), grids_b or ()):
+        if not torch.equal(x.view(torch.int64), y.view(torch.int64)):
+            raise AssertionError(f"validation {what}: a distance grid differs")
+
+
+def run_validation(windows, device, card_line):
+    """Validation against GLM lightning over the statistics phase's three
+    windows (``windows``: {name: detection dataset}) on
+    ``disk_geometry``'s grid, on the card under its own budget: seeded
+    flashes (``glm_flashes``) gridded by ``regrid_glm`` with parallax
+    correction, then ``validate_cores`` and ``validate_anvils`` (thick,
+    thin) on every window, and ``validate_cores_with_anvils`` and
+    ``validate_anvils_with_cores`` on the middle one.  Logs each step's
+    seconds (the transforms, the per-object reductions, the binning), its
+    peak over its start against the budget at its start, its chunks, the
+    flashes, POD and FAR, and the depth validation reaches at the
+    windows' frame.  Checks: (a) the card's counts equal numpy's
+    ``histogram2d``; (b) the card's transform equals scipy's on
+    ``SCIPY_FRAMES`` frames a window; (c) on the middle window's first
+    frames cut to ``VALIDATE_CHECK`` the card's results (grids, POD, FAR,
+    per-object distances) equal the CPU's; (d) on its first
+    ``VALIDATE_CHUNKED_FRAMES`` frames, under a budget that runs the
+    marker distance and the per-object passes in at least 3 chunks, the
+    results equal the whole run's; (e) every peak within its budget; (f)
+    POD in (0, 1], FAR in [0, 1]; (g) 0 kernel launches."""
+    from scipy.ndimage import distance_transform_edt as scipy_edt
+
+    t0 = time.perf_counter()
+    names = list(windows)
+    mid = windows[names[1]]
+    t, h, w = mid["core_label"].shape
+    steps = []
+    cuda = device.type == "cuda"
+
+    def step(what, fn):
+        room = start = 0
+        if cuda:
+            torch.cuda.synchronize()
+            room = port_device.memory_budget(device)
+            start = torch.cuda.memory_allocated(device)
+            port_device.reset_peak_memory(device)
+        stats, t1 = {}, time.perf_counter()
+        out = fn(stats)
+        if cuda:
+            torch.cuda.synchronize()
+        peak = port_device.peak_memory(device) - start if cuda else 0
+        steps.append((what, time.perf_counter() - t1, peak, room, stats))
+        return out
+
+    # the check's cut, around the middle window's cores in its first frames
+    ct, ch, cw = VALIDATE_CHECK
+    core = as_tensor(mid["core_label"])[:ct]
+    where = torch.nonzero(core.to(device) > 0).float()
+    cy, cx = (where[:, 1].mean().item(), where[:, 2].mean().item()) if where.numel() else (
+        h / 2, w / 2)
+    y0 = int(min(max(cy - ch / 2, 0), h - ch))
+    x0 = int(min(max(cx - cw / 2, 0), w - cw))
+    cut = validation_window(mid, torch.device("cpu"), slice(0, ct), slice(y0, y0 + ch),
+                            slice(x0, x0 + cw))
+    runs = {}
+
+    def run_cpu(glm_cut):
+        try:
+            t3 = time.perf_counter()
+            runs["cpu"] = validate_all(cut, glm_cut, torch.device("cpu"), both=True)
+            runs["cpu_s"] = time.perf_counter() - t3
+        except BaseException as err:  # raised again once the card's work is done
+            runs["cpu_error"] = err
+
+    reset_counts()
+    flashes, pods, cpu_leg, scipy_s, frame_s = {}, {}, None, 0.0, []
+    for k, name in enumerate(names):
+        ds = windows[name]
+        grid = glm_grid_ds(ds)
+        ftimes, lat, lon = glm_flashes(ds, 30 + k, device)
+        flashes[name] = lat.size
+        glm_ds = step(f"regrid_glm {name}", lambda st: glm.gridded_flash_ds(
+            grid, ftimes, lat, lon, device))
+        counts = glm_ds["glm_flashes"].data
+        if not np.array_equal(counts.cpu().numpy(), host_counts(grid, ftimes, lat, lon)):
+            raise AssertionError(f"validation (a): {name}: the card's counts differ from "
+                                 f"numpy's histogram2d")
+        if k == 1:  # the CPU's run of the cut, in a thread beside the card's
+            glm_cut = counts[:ct, y0:y0 + ch, x0:x0 + cw].cpu().clone()
+            cpu_leg = threading.Thread(target=run_cpu, args=(glm_cut,), name="validation-cpu")
+            cpu_leg.start()
+        vds = validation_window(ds, device)
+        validate_all(vds, counts, device, both=k == 1, step=step)
+        pods[name] = {key: vds.attrs[key] for key in sorted(vds.attrs)
+                      if key.endswith(("_pod", "_far"))}
+        bad = {key: v for key, v in pods[name].items()
+               if not math.isfinite(v) or not (0 < v <= 1 if key.endswith("pod") else 0 <= v <= 1)}
+        if bad:
+            raise AssertionError(f"validation (f): {name}: {bad}")
+        # (b) the card's transform of whole frames against scipy's
+        labels = vds["core_label"].data
+        held = torch.nonzero((labels != 0).flatten(1).any(1))[:, 0].tolist()
+        for i in [held[0], held[len(held) // 2], held[-1]][:SCIPY_FRAMES]:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            mine = distance_transform_edt(labels[i] == 0)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t2)
+            t2 = time.perf_counter()
+            want = scipy_edt(labels[i].cpu().numpy() == 0)
+            scipy_s += time.perf_counter() - t2
+            if not same_bits(mine.cpu().numpy(), want):
+                raise AssertionError(f"validation (b): {name} frame {i}: the card's transform "
+                                     f"differs from scipy's")
+        del vds, glm_ds, counts, labels
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches, by_shape = read_counts()
+    if launches:
+        raise AssertionError(f"validation launched the ws_sweeps kernel {launches} times")
+    seconds = sum(sec for _, sec, *_ in steps)
+    over = [(what, grew, room) for what, _, grew, room, _ in steps if grew > room]
+    for what, sec, grew, room, stats in steps:
+        chunks = {k[:-len("_chunks")]: v for k, v in stats.items() if k.endswith("_chunks")}
+        log(f"validation {what} [{card_line}]: {sec:.3f} s, peak {grew / 2**30:.3f} GiB over "
+            f"its start (budget {room / 2**30:.1f} GiB); " + ", ".join(
+                f"{k[:-2]} {v:.3f} s" for k, v in stats.items() if k.endswith("_s"))
+            + f"; chunks {chunks or 1}")
+    if over:
+        raise AssertionError(f"validation (e): peaks over budget {over}")
+    transforms = [st[f"{k}_s"] for what, _, _, _, st in steps for k in
+                  ("marker_distance", "flash_distance") if f"{k}_s" in st]
+    budget = port_device.memory_budget(device) or 0  # no budget on the CPU
+    px = h * w
+    depth = (budget - port_device.VALIDATE_BYTES_PER_PX * (4 + 6) * px) // (
+        VALIDATE_RESIDENT_BYTES_PER_PX * px)
+    log(f"validation [{card_line}]: 3 windows of {(t, h, w)}, flashes {flashes}, in "
+        f"{seconds:.3f} s of steps; {len(transforms)} marker-distance volumes "
+        f"{sum(transforms):.3f} s ({sum(transforms) / (len(transforms) * t) * 1e3:.2f} ms a frame "
+        f"with the time-margin minimum); a whole-frame transform alone "
+        f"{min(frame_s) * 1e3:.2f}-{max(frame_s) * 1e3:.2f} ms (scipy on the host "
+        f"{scipy_s / len(frame_s) * 1e3:.1f} ms); POD and FAR {pods}; 0 kernel launches; "
+        f"computed depth at {(h, w)} under the card's budget ({budget / 2**30:.1f} GiB: "
+        f"{VALIDATE_RESIDENT_BYTES_PER_PX} B/px kept whole, a 4-frame chunk and its 6 halo "
+        f"frames at {port_device.VALIDATE_BYTES_PER_PX} B/px) {depth} frames")
+
+    # (c) the card against the CPU on the cut; (d) forced chunks against whole
     t2 = time.perf_counter()
-    run_cut("card", device)
+    card_cut = validation_window(cut, device)
+    card_run = validate_all(card_cut, glm_cut.to(device), device, both=True)
     cpu_leg.join()
     if "cpu_error" in runs:
         raise runs["cpu_error"]
-    waited = time.perf_counter() - t2 - runs["card"][1]
+    _validated_equal(runs["cpu"], card_run, "(c) card against CPU")
+    deep = validation_window(mid, device, slice(0, VALIDATE_CHUNKED_FRAMES))
+    grid = glm_grid_ds(deep)
+    ftimes, lat, lon = glm_flashes(deep, 40, device)
+    counts = glm.gridded_flash_ds(grid, ftimes, lat, lon, device)["glm_flashes"].data
+    whole = validate_all(deep, counts, device)
     plans = []
     port_device._PLANS.append(plans)
     try:
-        run_cut("chunked", device, port_device.frames_budget(STATS_CHUNK_FRAMES))
+        chunked = validate_all(validation_window(mid, device, slice(0, VALIDATE_CHUNKED_FRAMES)),
+                               counts, device, port_device.frames_budget(4))
     finally:
         port_device._PLANS[:] = [p for p in port_device._PLANS if p is not plans]
-    fewest = {p: min((-(-t // c) for what, t, c in plans if what == p), default=0)
-              for p in STATS_PASSES}
+    fewest = {p: min((-(-n // c) for what, n, c in plans if what == p), default=0)
+              for p in ("marker_distance", "validate_objects")}
     if min(fewest.values()) < 3:
-        raise AssertionError(f"statistics: a new pass ran in fewer than 3 chunks {fewest}")
-    _held_equal(runs["cpu"][0], runs["card"][0], "card against CPU")
-    _held_equal(runs["card"][0], runs["chunked"][0], "chunked against whole")
-    log(f"statistics checks on window 1's first {STATS_CHECK_FRAMES} frames "
-        f"{tuple(cut['core_label'].shape)} [{card_line}]: the card's datasets equal the CPU's "
-        f"(float64 to rtol 1e-12, float32 means and stds to 1e-5, the rest identical) and, with "
-        f"every new pass in at least 3 chunks (fewest {fewest}), the whole run's; card "
-        f"{runs['card'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s (in a thread from the phase's "
-        f"start; {waited:.1f} s waited for after the card's), chunked "
-        f"{runs['chunked'][1]:.1f} s; phase {time.perf_counter() - t0:.1f} s "
-        f"({time.perf_counter() - t2:.1f} s of it after the windows)")
+        raise AssertionError(f"validation (d): a pass ran in fewer than 3 chunks {fewest}")
+    _validated_equal(whole, chunked, "(d) chunked against whole")
+    log(f"validation checks [{card_line}]: (a) the card's flash counts equal numpy's "
+        f"histogram2d in every window; (b) its transform equals scipy's on {SCIPY_FRAMES} "
+        f"whole frames a window; (c) on window 1's first {ct} frames cut to {(ch, cw)} at "
+        f"({y0}, {x0}) the card's grids, POD, FAR and per-object distances equal the CPU's "
+        f"(CPU {runs['cpu_s']:.1f} s in a thread); (d) on its first {VALIDATE_CHUNKED_FRAMES} "
+        f"frames in forced chunks (fewest {fewest}) the whole run's; (e) every peak within "
+        f"its budget; (f) POD in (0, 1], FAR in [0, 1]; (g) 0 kernel launches; checks "
+        f"{time.perf_counter() - t2:.1f} s; phase {time.perf_counter() - t0:.1f} s")
     return by_shape
+
+
+# -- SEVIRI native ingest --------------------------------------------------------
+
+SEVIRI_DISK = 3712  # the full disk's VISIR lines and columns
+SEVIRI_SCANS = 9  # 15 minutes apart
+SEVIRI_MISSING = 1  # the scan left out: a 30-minute gap, one NaN frame
+SEVIRI_CYCLE = 12  # deep_scene's cycle: its cells grow over 3.85 scans (1.4 K/min)
+# y0, y1, x0, x1: 448x448 about the disk's centre, to keep the phase near a
+# minute on an H100 and the script in its time limit (its anvil floods took
+# 86 s at 640x640, 55 s at 512x512)
+SEVIRI_CROP = (1632, 2080, 1632, 2080)
+SEVIRI_T0 = datetime(2020, 6, 1, 12, 0)
+# each IR channel's background BT (K) over the disk, with 0.3 K of noise
+SEVIRI_BACKGROUND = {"WV_062": 226.0, "WV_073": 240.0, "IR_087": 286.0, "IR_108": 290.0,
+                     "IR_120": 288.0}
+SEVIRI_WORKERS = 8  # threads that write the archives
+
+
+def seviri_scan(path, i, storm, disk, crop, seed):
+    """Write scan ``i`` as a full-disk native archive at ``path``: the
+    background BTs with noise from (``seed``, ``i``), and inside ``crop``
+    the storm fields ``storm`` (BT, WVD, SWD of the crop) as IR_108 = BT,
+    WV_062 = WV_073 + WVD, IR_120 = BT - 2 and IR_087 = IR_120 + SWD."""
+    bt, wvd, swd = storm
+    rng = np.random.default_rng([seed, i])
+    fields = {}
+    for ch, base in SEVIRI_BACKGROUND.items():
+        f = rng.standard_normal((disk, disk), dtype=np.float32)
+        f *= np.float32(0.3)
+        f += np.float32(base)
+        fields[ch] = f
+    y0, y1, x0, x1 = crop
+    inside = (slice(y0, y1), slice(x0, x1))
+    fields["IR_108"][inside] = bt
+    fields["WV_062"][inside] = fields["WV_073"][inside] + wvd
+    fields["IR_120"][inside] = bt - np.float32(2)
+    fields["IR_087"][inside] = fields["IR_120"][inside] + swd
+    write_nat(path, fields, SEVIRI_T0 + timedelta(minutes=15 * i))
+    return str(path)
+
+
+def seviri_archives(directory):
+    """``deep_scene``'s storm cells over ``SEVIRI_CROP`` (growing over the 9
+    scans) written with ``write_nat`` as full-disk archives with the five IR
+    channels, 15 minutes apart, less scan ``SEVIRI_MISSING``, into
+    ``directory`` (``SEVIRI_WORKERS`` threads).  Returns their paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    y0, y1, x0, x1 = SEVIRI_CROP
+    storm = deep_scene(SEVIRI_SCANS, y1 - y0, x1 - x0, seed=3, cycle=SEVIRI_CYCLE)
+    scans = [i for i in range(SEVIRI_SCANS) if i != SEVIRI_MISSING]
+    paths = [str(Path(directory) / f"MSG4-SEVI-MSG15-0100-NA-{i:02d}.nat") for i in scans]
+    with ThreadPoolExecutor(SEVIRI_WORKERS) as pool:
+        list(pool.map(seviri_scan, paths, scans, [[f[i] for f in storm] for i in scans],
+                      [SEVIRI_DISK] * len(scans), [SEVIRI_CROP] * len(scans),
+                      [3] * len(scans)))
+    return paths
+
+
+def run_seviri(device, card_line, archives):
+    """The SEVIRI native ingest and detection: the archives of
+    ``seviri_archives`` (being written beside the earlier phases,
+    ``archives``: ``prefetched``), decoded at full width and cropped by
+    ``seviri_nat_dataloader`` (8 threads) and timed per file, as
+    ``dcc_detect_seviri_nat.detect_seviri_nat`` loads them; then its
+    ``detect_fields`` on the card.  Checks: the decode equals a file's
+    decode alone and reaches the card unchanged; the gap is one NaN frame;
+    every stage finds objects.  Returns the kernel's launches, in all and
+    by shape."""
+    t0 = time.perf_counter()
+    y0, y1, x0, x1 = SEVIRI_CROP
+    paths, written, waited = archives()
+    size = sum(os.path.getsize(p) for p in paths)
+    t1 = time.perf_counter()
+    bt, wvd, twd = seviri_nat_dataloader(None, None, paths, x0=x0, x1=x1, y0=y0, y1=y1)
+    decoded = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    alone = decode_nat(paths[0])[0]
+    one = time.perf_counter() - t1
+    if not same_bits(bt.values[0], alone["IR_108"][y0:y1, x0:x1]):
+        raise AssertionError("SEVIRI: the threaded decode differs from a file's decode alone")
+    for da in (bt, wvd, twd):
+        if not same_bits(as_tensor(da, device).cpu().numpy(), da.values):
+            raise AssertionError(f"SEVIRI: {da.name} changed on its way to the card")
+    gap = np.isnan(bt.values).all(axis=(1, 2))
+    if bt.shape != (SEVIRI_SCANS, y1 - y0, x1 - x0) or gap.tolist() != [
+            i == SEVIRI_MISSING for i in range(SEVIRI_SCANS)]:
+        raise AssertionError(f"SEVIRI: loaded {bt.shape}, NaN frames {np.flatnonzero(gap)}")
+    log(f"SEVIRI: {len(paths)} full-disk {SEVIRI_DISK}x{SEVIRI_DISK} native archives (5 IR "
+        f"channels, {size / len(paths) / 2**20:.1f} MiB each) written in {written:.1f} s "
+        f"({SEVIRI_WORKERS} threads, beside the validation phase; {waited:.1f} s waited "
+        f"for); decoded and cropped to {bt.shape[1:]} in "
+        f"{decoded:.2f} s ({decoded / len(paths):.3f} s a file in 8 threads; "
+        f"{one:.3f} s for a file alone) [{card_line}]; the fields reach the card unchanged, "
+        f"the gap is one NaN frame")
+    del alone
+    reset_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {}
+    t1 = time.perf_counter()
+    ds, name = dcc_detect_seviri_nat.detect_fields(bt, wvd, twd, device=device, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches, by_shape = read_counts()
+    objects = {k: int(ds.coords[k].size) for k in CLI_COORDS}
+    if min(objects.values()) == 0 or launches == 0:
+        raise AssertionError(f"SEVIRI: objects {objects}, {launches} kernel launches")
+    log(f"SEVIRI {name} {tuple(ds['core_label'].shape)} through dcc_detect_seviri_nat's "
+        f"detection of the decoded fields [{card_line}]: {seconds:.3f} s; " + ", ".join(
+            f"{k} {stats[k + '_s']:.3f} s" for k in CLI_STAGES if k + "_s" in stats)
+        + f"; objects {objects}; kernel launches {launches} by shape {by_shape}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, by_shape
 
 
 def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
     """The kernel against its plain version (bit-equal, connectivity 1) and
     timed at every (shape, K) of ``by_shape`` that ``per_shape`` lacks."""
     worst = 0.0
+    keys = {}
     for key in sorted(set(by_shape) - set(per_shape)):
         dims, k = key.split(" K=")
-        shape, k = tuple(int(d) for d in dims.split("x")), int(k)
-        args = sweep_inputs(shape, 1, device)
-        plain = ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k)
-        kern = ws_sweeps.spatial_sweeps(*args, IN_PLANE[1], k)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("claim", "claim2", "meta"), plain, kern):
-            if not torch.equal(a, b):
-                raise AssertionError(f"kernel != plain at {key}: {name} differs at "
-                                     f"{int((a != b).sum())} pixels")
-            worst = max(worst, max_abs_err(a, b))
-        log(f"kernel == plain (bit-equal) at {key}, connectivity 1")
-        del args, plain, kern
-        per_shape.update(time_shape_classes(device, card_line, ((shape, k),)))
+        keys.setdefault(tuple(int(d) for d in dims.split("x")), []).append(int(k))
+    for shape, ks in keys.items():
+        args = sweep_inputs(shape, 1, device)  # one input set for the shape's checks and times
+        for k in ks:
+            key = shape_key(shape, k)
+            plain = ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k)
+            kern = ws_sweeps.spatial_sweeps(*args, IN_PLANE[1], k)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("claim", "claim2", "meta"), plain, kern):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"kernel != plain at {key}: {name} differs at "
+                                         f"{int((a != b).sum())} pixels")
+                worst = max(worst, max_abs_err(a, b))
+            log(f"kernel == plain (bit-equal) at {key}, connectivity 1")
+            del plain, kern
+        per_shape.update(time_shape_classes(device, card_line, [(shape, k) for k in ks],
+                                            {shape: args}))
+        del args
     return worst
 
 
@@ -2323,32 +2904,59 @@ def main():
     # the detection chain: card against CPU on a small scene and its profile
     # at the bench frame; then the GOES ingest's output through it, card
     # against CPU on a small scene and timed on the CONUS-shaped scene
-    small_by_shape = check_chunked_chain_small(check_chain_small(device, card_line), card_line)
-    chain_profiled_ms, chain_profiled_launches = profile_chain(device, card_line)
-    check_goes_small(device, card_line)
-    goes_launches, goes_by_shape, goes_record = run_goes(device, card_line)
-    check_chunked_goes(goes_record, device, card_line)
-    del goes_record
+    with cpu_legs() as legs:
+        small = check_chain_small(device, card_line, legs)
+        small_by_shape = check_chunked_chain_small(small, card_line)
+        chain_profiled_ms, chain_profiled_launches = profile_chain(device, card_line)
+        goes_scene = prefetched(goes_frames, GOES_FULL, GOES_MISSING)
+        finish_goes_small = check_goes_small(device, card_line, legs)
+        goes_launches, goes_by_shape, goes_record = run_goes(device, card_line, goes_scene)
+        check_chunked_goes(goes_record, device, card_line)
+        del goes_record
+        small[3]()
+        finish_goes_small()
+        del small
 
     # the time-chunked flood: card against CPU, chunked against whole at
     # the job's frame, then the main path past what the card floods whole
+    deep_at = deep_shape(device)[0]
+    deep_scene_made = (deep_at, prefetched(deep_inputs, deep_at))
     check_chunked_small(device, card_line)
     fit_by_shape = run_chunked_fit(device, card_line)
-    deep_launches, deep_by_shape = run_deep(device, card_line)
+    deep_launches, deep_by_shape = run_deep(device, card_line, deep_scene_made)
+    del deep_scene_made
     # cross-file linking: the recorded windows against the JAX record, then
     # three windows cut from the deep chain's volumes at the job's frame
     check_linking_small(device, card_line)
     link_by_shape, linked = run_deep_linking(run_deep_chain(device, card_line), device,
                                              card_line)
     # statistics and post-processing of the linked windows
-    stats_by_shape = run_statistics(linked, device, card_line)
+    stats_by_shape, windows, finish_statistics = run_statistics(linked, device, card_line)
     del linked
+    # validation of the three windows against seeded GLM flashes, while the
+    # statistics' CPU check runs on in its thread and the SEVIRI archives
+    # are written; then that check, and the SEVIRI ingest and detection
+    seviri_dir = ws_sweeps._BUILD_DIR / "seviri"
+    shutil.rmtree(seviri_dir, ignore_errors=True)
+    seviri_dir.mkdir(parents=True)
+    archives = prefetched(seviri_archives, seviri_dir)
+    try:
+        validation_by_shape = run_validation(windows, device, card_line)
+        del windows
+        finish_statistics()
+        gc.collect()
+        torch.cuda.empty_cache()
+        seviri_launches, seviri_by_shape = run_seviri(device, card_line, archives)
+    finally:
+        archives.thread.join()
+        shutil.rmtree(seviri_dir, ignore_errors=True)
     worst = max(worst, check_and_time_new_shapes(
-        {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape}, per_shape, device,
-        card_line))
+        {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape, **seviri_by_shape},
+        per_shape, device, card_line))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape,
-             "statistics": stats_by_shape}
+             "statistics": stats_by_shape, "validation": validation_by_shape,
+             "dcc_detect_seviri_nat": seviri_by_shape}
 
     for key, row in per_shape.items():
         counts = [c.get(key, 0) for c in paths.values()]
@@ -2367,7 +2975,8 @@ def main():
 
     print(json.dumps({"kernels": [{
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches + goes_launches + deep_launches,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches + goes_launches + deep_launches + seviri_launches,
         "max_abs_err": worst,
         "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
         "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
@@ -2375,7 +2984,8 @@ def main():
         "library_note": "no single PyTorch call computes this function",
         "per": "one run of each main path (the bench slice, the detection of the "
                "CONUS-shaped GOES scene, the deep time-chunked slice, the linking of three "
-               "windows cut from the deep chain and their statistics, which flood nothing): "
+               "windows cut from the deep chain, their statistics and their validation, which "
+               "flood nothing, and the SEVIRI native CLI's detection of its crop): "
                "the sum over its "
                "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},

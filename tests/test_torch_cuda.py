@@ -22,6 +22,7 @@ from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
 from tobac_flow_tpu_torch.detect.chain import run_detection
 from tobac_flow_tpu_torch.ops import ws_sweeps
 from tobac_flow_tpu_torch.ops.ccl import flat_label
+from tobac_flow_tpu_torch.ops.morphology import distance_transform_edt
 from tobac_flow_tpu_torch.ops.watershed import watershed
 from tools.parity_detect import make_multistorm_scene
 
@@ -398,3 +399,95 @@ def test_bin_sums_on_card_equal_cpu_bitwise(cuda):
         values = torch.as_tensor(rng.normal(225, 9, m))
         assert torch.equal(bin_sums(values.to(cuda), bins.to(cuda), n).cpu(),
                            bin_sums(values, bins, n))
+
+
+@pytest.mark.parametrize("sampling", [None, (1e9, 1.0, 1.0), (1.7, 0.35, 1.3)])
+def test_distance_transform_on_card_equals_cpu_and_scipy(cuda, sampling):
+    """The exact transform on the card equals the CPU's bit for bit (unit,
+    per-frame and non-integer spacings), and scipy's: bit for bit at unit
+    spacing, to rounding at the others (scipy adds in another order)."""
+    rng = np.random.default_rng(3)
+    mask = rng.random((5, 150, 230)) > 0.01
+    mask[2] = True  # a frame without a zero pixel
+    mask[3, 40] = True  # a row without one
+    cpu = distance_transform_edt(torch.from_numpy(mask), sampling)
+    card = distance_transform_edt(torch.from_numpy(mask).to(cuda), sampling)
+    assert torch.equal(card.cpu().view(torch.int64), cpu.view(torch.int64))
+    want = ndi.distance_transform_edt(mask, sampling=sampling) if sampling != (1e9, 1.0, 1.0) \
+        else np.stack([ndi.distance_transform_edt(m) for m in mask])
+    if sampling == (1e9, 1.0, 1.0):
+        want[2] = 1e15  # no zero in the frame: the reference's cap, not scipy's
+    if sampling is None or sampling[0] == 1e9:
+        assert np.array_equal(card.cpu().numpy(), want)
+    else:
+        np.testing.assert_allclose(card.cpu().numpy(), want, rtol=1e-12, atol=0)
+
+
+def test_regrid_glm_on_card_equals_cpu(cuda):
+    from tobac_flow_tpu_torch.data import glm
+    from tobac_flow_tpu_torch.data.abi import ABIProjection
+
+    rng = np.random.default_rng(5)
+    y, x = (np.arange(300)[::-1] - 150) * 56e-6, (np.arange(400) - 200) * 56e-6
+    t0 = np.datetime64("2020-06-01T12:00", "ns")
+    ds = Dataset(coords={"t": t0 + np.arange(6) * np.timedelta64(300, "s"), "y": y, "x": x})
+    ds["goes_imager_projection"] = DataArray(np.zeros((), np.int32), dims=(), attrs={
+        "semi_major_axis": 6378137.0, "semi_minor_axis": 6356752.31414,
+        "perspective_point_height": 35786023.0, "longitude_of_projection_origin": -75.0})
+    n = 200_000
+    lat, lon = ABIProjection().to_latlon(rng.uniform(-0.012, 0.012, n),
+                                         rng.uniform(-0.009, 0.009, n))
+    times = t0 + rng.integers(-200, 1900, n).astype("timedelta64[s]")
+    t_bins = glm._time_bins(np.asarray(ds.coords["t"]))
+    cpu = glm.regrid_glm(times, lat, lon, ds, t_bins, device="cpu")
+    card = glm.regrid_glm(times, lat, lon, ds, t_bins, device=cuda)
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu) and int(cpu.sum()) > 0
+
+
+def _validation_scene(shape=(12, 120, 160), seed=0):
+    """Label volumes (cores, thick anvils as cores grown, thin anvils) and
+    an int32 flash grid with flashes on most cores and false ones."""
+    rng = np.random.default_rng(seed)
+    t, h, w = shape
+    cores = np.zeros(shape, np.int32)
+    for k in range(1, 13):
+        t0, y, x = rng.integers(0, t - 4), rng.integers(10, h - 20), rng.integers(10, w - 20)
+        cores[t0:t0 + rng.integers(3, 8), y:y + 6, x:x + 6] = k
+    thick = ndi.grey_dilation(cores, size=(1, 9, 9))
+    thin = ndi.grey_dilation(cores, size=(1, 17, 17))
+    glm_grid = np.zeros(shape, np.int32)
+    on = np.argwhere((cores > 0) & (cores % 4 != 0))
+    np.add.at(glm_grid, tuple(on[rng.integers(0, len(on), 60)].T), 1)
+    np.add.at(glm_grid, tuple(rng.integers(0, shape, (30, 3)).T), 1)
+    return cores, thick, thin, glm_grid
+
+
+@pytest.mark.parametrize("budget", ["whole", "chunked"])
+def test_validate_cores_on_card_equals_cpu(cuda, budget):
+    """``validate_cores`` and ``validate_anvils`` on the card (whole, and in
+    forced chunks) give the CPU's scores, per-object distances and grids."""
+    from tobac_flow_tpu_torch import device as port_device
+    from tobac_flow_tpu_torch.validate import validation
+
+    cores, thick, thin, glm_grid = _validation_scene()
+    times = np.datetime64("2020-06-01T12:00", "ns") + np.arange(12) * np.timedelta64(300, "s")
+    b = port_device.frames_budget(4) if budget == "chunked" else None
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        ds = Dataset(coords={"t": times, "core": np.arange(1, 14), "anvil": np.arange(1, 13)})
+        for name, vol in (("core_label", cores), ("thick_anvil_label", thick),
+                          ("thin_anvil_label", thin)):
+            ds[name] = DataArray(torch.from_numpy(vol).to(dev), dims=("t", "y", "x"))
+        scores = (validation.validate_cores(ds, glm_grid, margin=5, time_margin=1, device=dev,
+                                            budget_bytes=b),
+                  validation.validate_anvils(ds, glm_grid, margin=5, time_margin=1, device=dev,
+                                             budget_bytes=b))
+        edge = validation.get_edge_filter(ds, margin=5, device=dev)
+        grids = validation.validate_markers(ds["core_label"], glm_grid, None, edge,
+                                            time_margin=1, device=dev, budget_bytes=b)[:2]
+        runs.append((scores, dict(ds.attrs), ds["core_glm_distance"].values,
+                     ds["thick_anvil_glm_distance"].values, [g.cpu() for g in grids]))
+    (s0, a0, c0, t0, g0), (s1, a1, c1, t1, g1) = runs
+    assert s0 == s1 and a0 == a1 and 0 < s0[0][0] <= 1
+    assert np.array_equal(c0, c1) and np.array_equal(t0, t1)
+    assert all(torch.equal(x.view(torch.int64), y.view(torch.int64)) for x, y in zip(g0, g1))

@@ -43,7 +43,8 @@ from tobac_flow_tpu.cli import relabel_postprocess as jax_relabel_cli  # noqa: E
 from tobac_flow_tpu.data import ncdataset as jnc  # noqa: E402
 from tobac_flow_tpu.detect.analysis import weighted_statistics_on_labels  # noqa: E402
 from tobac_flow_tpu_torch.cli import (  # noqa: E402
-    dcc_statistics, postprocess_dcc, quick_fix, relabel_postprocess,
+    dcc_detect_seviri, dcc_detect_seviri_nat, dcc_statistics, dcc_validation, fix_seviri_dccs,
+    grid_glm, postprocess_dcc, quick_fix, relabel_postprocess, seviri_cre_time_series,
 )
 from tobac_flow_tpu_torch.data.ncdataset import open_dataset as port_open  # noqa: E402
 from tobac_flow_tpu_torch.utils.datetime_utils import get_dates_from_filename  # noqa: E402
@@ -288,7 +289,18 @@ CLIS = {"relabel_postprocess": (relabel_postprocess, ["F_S2020153000000_E2020153
                                                       "links.nc"]),
         "postprocess_dcc": (postprocess_dcc, ["F.nc", "-fields", "G.nc", "-vars", "ctt"]),
         "quick_fix": (quick_fix, ["F.nc", "-src", "G.nc", "-vars", "ctt"]),
-        "dcc_statistics": (dcc_statistics, ["F.nc", "G.nc"])}
+        "dcc_statistics": (dcc_statistics, ["F.nc", "G.nc"]),
+        "dcc_validation": (dcc_validation, ["F.nc", "-glm", "G.nc"]),
+        "grid_glm": (grid_glm, ["F.nc", "-glm", "glm_dir"]),
+        "dcc_detect_seviri_nat": (dcc_detect_seviri_nat, ["a.nat", "b.nat"]),
+        "dcc_detect_seviri": (dcc_detect_seviri, ["F.nc", "G.nc"]),
+        "fix_seviri_dccs": (fix_seviri_dccs, ["F.nc"]),
+        "seviri_cre_time_series": (seviri_cre_time_series, ["F.nc"])}
+# the passes and reads of the CLIs, none of which may run before the check
+WORK = ("relabel_postprocess", "postprocess_dataset", "quick_fix", "dcc_statistics",
+        "open_dataset", "validate_dataset", "gridded_flash_ds", "read_glm_flashes", "find_glm_files",
+        "create_gridded_flash_ds", "detect_seviri_nat", "seviri_nat_dataloader",
+        "seviri_dataloader", "run_detection", "fix_dataset", "fix_file", "cre_time_series")
 
 
 @pytest.mark.parametrize("name", sorted(CLIS))
@@ -309,14 +321,27 @@ def test_cli_raises_for_h5py_before_any_pass(tmp_path, monkeypatch, name):
 
     monkeypatch.setattr(builtins, "__import__", no_h5py)
     module, args = CLIS[name]
-    for fn in ("relabel_postprocess", "postprocess_dataset", "quick_fix", "dcc_statistics",
-               "open_dataset"):
+    for fn in WORK:
         if hasattr(module, fn):
             monkeypatch.setattr(module, fn, no_pass)
     with pytest.raises(ImportError, match="h5py"):
         module.main([str(tmp_path / a) if a.endswith(".nc") else a for a in args]
                     + ["-sd", str(tmp_path / "out"), "--device", "cpu"])
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("name", ["dcc_detect_seviri", "dcc_detect_seviri_nat", "dcc_validation",
+                                  "fix_seviri_dccs", "grid_glm", "seviri_cre_time_series"])
+def test_new_cli_runs_on_cuda_by_default(tmp_path, name):
+    """Without ``--device`` each validation and SEVIRI CLI asks for CUDA
+    before it reads a file, and raises where it is not available rather
+    than run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is available here: the default runs on the card")
+    module, args = CLIS[name]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        module.main([str(tmp_path / a) if a.endswith(".nc") else a for a in args]
+                    + ["-sd", str(tmp_path / "out")])
 
 
 def test_cli_runs_on_cuda_by_default(storm_files, tmp_path):

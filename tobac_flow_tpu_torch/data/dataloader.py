@@ -16,6 +16,9 @@ as time-sorted DataArrays), :func:`fill_time_gap_nan` and
 :func:`goes_geometry` (the output dataset's projection, lat, lon and
 pixel area).  Host numpy throughout: the fields go to the card in the
 detection (``cli.common.run_detection``).
+
+:func:`seviri_dataloader` reads SEVIRI fields from netCDF channel files
+(through h5py) under either the channel names or ORAC's ``ch*`` names.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ __all__ = [
     "fill_time_gap_nan",
     "fill_time_gap_full_disk",
     "get_stripe_deviation",
+    "seviri_dataloader",
 ]
 
 CHANNELS = ("C08", "C10", "C13", "C15")
@@ -342,4 +346,61 @@ def goes_dataloader(
 
     if return_new_ds:
         return bt, wvd, swd, goes_geometry(bt.coords, proj_attrs, warn=True)
+    return bt, wvd, swd
+
+
+def seviri_dataloader(
+    start_date,
+    end_date,
+    file_paths,
+    x0=None,
+    x1=None,
+    y0=None,
+    y1=None,
+    time_gap=timedelta(minutes=20),
+):
+    """SEVIRI bt/wvd/swd from netCDF channel files (one time step each):
+    bt = IR_108 (or ``ch9``), wvd = WV_062 − WV_073 (``ch5`` − ``ch6``),
+    swd = IR_087 − IR_120, or bt − ``ch10`` where those are absent; cropped
+    to [y0:y1, x0:x1], time-sorted, with an all-NaN frame in each gap over
+    ``time_gap``."""
+    times, bts, wvds, swds = [], [], [], []
+    coords = {}
+    for f in sorted(file_paths):
+        ds = open_dataset(f)
+        sl = (slice(y0, y1), slice(x0, x1))
+
+        def ch(*names):
+            for n in names:
+                if n in ds.data_vars:
+                    return np.asarray(ds[n].values)[sl].astype(np.float32)
+            raise KeyError(names)
+
+        bt = ch("IR_108", "ch9")
+        wvd = ch("WV_062", "ch5") - ch("WV_073", "ch6")
+        try:
+            swd = ch("IR_087") - ch("IR_120")
+        except KeyError:
+            swd = bt - ch("ch10")
+        t = np.ravel(np.asarray(ds.coords.get("t")))[0]
+        times.append(t)
+        bts.append(bt)
+        wvds.append(wvd)
+        swds.append(swd)
+
+    order = np.argsort(np.asarray(times))
+    coords["t"] = np.asarray(times)[order]
+
+    def da(stack, name):
+        return DataArray(
+            np.stack([stack[i] for i in order]),
+            coords=coords,
+            dims=("t", "y", "x"),
+            name=name,
+            attrs={"long_name": name, "units": "K"},
+        )
+
+    bt = fill_time_gap_nan(da(bts, "bt"), time_gap)
+    wvd = fill_time_gap_nan(da(wvds, "wvd"), time_gap)
+    swd = fill_time_gap_nan(da(swds, "swd"), time_gap)
     return bt, wvd, swd

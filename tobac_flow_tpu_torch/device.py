@@ -51,6 +51,11 @@ MERGE_BYTES_PER_PX = 22  # track.file_linker.combine_labels, merge_labels: 21.22
 # (per pixel of a row block or time chunk)
 POSTPROCESS_BYTES_PER_PX = 87  # weighted_label_stats: 86.03; proportions: 62.05
 LABEL_STATS_BYTES_PER_PX = 20  # get_label_stats: 19.10
+# validation's marker distance (validate.validation): each frame's exact
+# distance transform and the minimum over the frames within the time
+# margin, per pixel of a time chunk with its halos (3 frames each side),
+# measured at 6 and 24 frames
+VALIDATE_BYTES_PER_PX = 37  # validate.validation marker distance: 28.41 whole, 36.25 chunked
 MIN_CHUNK_FRAMES = 4  # the smallest time chunk, as the reference's
 
 # the high-water mark of each CUDA device before ``stage``'s last reset of

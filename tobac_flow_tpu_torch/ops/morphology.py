@@ -5,7 +5,8 @@ uses).
 Semantics follow scipy as the reference does: the structure is anchored
 at its centre, ``border_value`` is what lies outside the array,
 ``iterations`` repeats the base operation.  Every op runs on its input's
-device over the whole volume.
+device over the whole volume.  ``distance_transform_edt`` is the exact
+Euclidean distance transform that validation uses.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from tobac_flow_tpu_torch.ops.warp import fma, shift_axis
 
-__all__ = ["binary_erosion", "binary_dilation", "binary_opening"]
+__all__ = ["binary_erosion", "binary_dilation", "binary_opening", "distance_transform_edt"]
 
 _FLOOD_CHECK = 8  # flood iterations between convergence checks
 
@@ -162,3 +163,108 @@ def _sepconv_reflect(data, kernels):
             out = fma(k[i], padded.narrow(axis, i, n), out)
         data = out
     return data
+
+
+_EDT_BIG = 1e30  # the reference's cap on missing distances, before and after squaring
+_EDT_SKIP = 1e8  # an axis spaced this far apart is not crossed
+_EDT_ROWS = 4  # output rows of one block of the brute-force minimum, at least
+_EDT_MIN_BLOCK = 2**22  # elements of one block's temporary, at least
+
+
+def _run_table(s, n):
+    """The reference's running distance ``k`` pixels past a zero: ``s``
+    added once a pixel (``n + 1`` values, float64), which for a
+    non-integer ``s`` is not ``k * s``."""
+    out, run = [0.0], 0.0
+    for _ in range(n):
+        run = min(run + s, _EDT_BIG)
+        out.append(run)
+    return out
+
+
+def _zero_steps(mask):
+    """Per pixel, the pixels along the last axis back to the closest zero
+    at or before it and on to the closest zero at or after it, and whether
+    there is one each way."""
+    n = mask.shape[-1]
+    idx = torch.arange(n, dtype=torch.int32, device=mask.device)
+    left = torch.where(mask, -1, idx).cummax(-1).values
+    right = torch.where(mask, n, idx).flip(-1).cummin(-1).values.flip(-1)
+    return idx - left, left >= 0, right - idx, right < n
+
+
+def _brute_min(d2, axis, dist2):
+    """``D(i) = min_j d2(j) + dist2[i, j]`` along ``axis``, over blocks of
+    output rows whose temporary holds ``_EDT_ROWS`` times the volume (or
+    ``_EDT_MIN_BLOCK`` elements)."""
+    moved = d2.movedim(axis, -1)
+    shape, m = moved.shape, moved.shape[-1]
+    flat = moved.reshape(-1, m)
+    out = torch.empty_like(flat)
+    rows = max(_EDT_ROWS, _EDT_MIN_BLOCK // max(1, flat.numel()))
+    for i0 in range(0, m, rows):
+        i1 = min(m, i0 + rows)
+        out[:, i0:i1] = (flat[:, None, :] + dist2[i0:i1]).amin(-1)
+    del flat
+    return out.reshape(shape).movedim(-1, axis).contiguous()
+
+
+def _sqrt(x):
+    """The correctly rounded float64 square root that numpy takes: the
+    card's is; the CPU's vectorised one is not, so there numpy's runs."""
+    if x.device.type == "cpu":
+        return torch.from_numpy(np.sqrt(x.numpy()))
+    return x.sqrt()
+
+
+def distance_transform_edt(mask, sampling=None):
+    """Exact Euclidean distance of each pixel to the nearest zero pixel of
+    ``mask`` (an array or tensor; float64, on its device), equal bit for
+    bit to the reference's two-stage transform: the closest zero along the
+    last axis, then for each other axis from the second last down
+    ``D²(i) = min_j d²(j) + (s (i - j))²`` by brute force, skipping an axis
+    whose ``sampling`` is at least 1e8 (so ``(1e9, 1, 1)`` gives each
+    frame's 2D distances).  Missing distances are capped at 1e30 before
+    and after squaring: a mask without a zero gives 1e15 everywhere.
+
+    With unit spacing the squared distances are exact integers, carried
+    as int32 (int64 past 2^29) with a sentinel for the cap; otherwise the
+    reference's float64 operations run as they are, its running sums of
+    ``s`` included."""
+    if hasattr(mask, "dims"):  # a DataArray
+        mask = mask.data
+    mask = torch.as_tensor(mask) != 0
+    nd = mask.dim()
+    if sampling is None:
+        sampling = (1.0,) * nd
+    sampling = tuple(float(s) for s in sampling)
+    axes = [ax for ax in range(nd - 2, -1, -1) if sampling[ax] < _EDT_SKIP]
+    n = mask.shape[-1]
+    dev = mask.device
+    k_left, has_left, k_right, has_right = _zero_steps(mask)
+    del mask
+    if all(sampling[ax] == 1.0 for ax in axes + [nd - 1]):
+        span = sum((d - 1) ** 2 for d in k_left.shape)
+        dtype, sent = (torch.int32, 2**30) if span < 2**29 else (torch.int64, 2**61)
+        k = torch.minimum(torch.where(has_left, k_left, n), torch.where(has_right, k_right, n))
+        del k_left, k_right
+        d2 = torch.where(has_left | has_right, k.to(dtype) ** 2, sent)
+        del k, has_left, has_right
+        for ax in axes:
+            i = torch.arange(d2.shape[ax], device=dev, dtype=dtype)
+            d2 = _brute_min(d2, ax, (i[:, None] - i[None, :]) ** 2).clamp_(max=sent)
+        return _sqrt(torch.where(d2 >= sent, _EDT_BIG, d2.double()))
+    table = torch.tensor(_run_table(sampling[-1], n), dtype=torch.float64, device=dev)
+    big = torch.tensor(_EDT_BIG, dtype=torch.float64, device=dev)
+    fwd = torch.where(has_left, table[k_left.long()], big)
+    bwd = torch.where(has_right, table[k_right.long()], big)
+    del k_left, k_right, has_left, has_right
+    d1 = torch.minimum(fwd, bwd)
+    del fwd, bwd
+    d2 = torch.minimum(d1 * d1, big)
+    del d1
+    for ax in axes:
+        i = torch.arange(d2.shape[ax], device=dev)
+        step = (i[:, None] - i[None, :]).double() * sampling[ax]
+        d2 = _brute_min(d2, ax, step * step)
+    return _sqrt(torch.minimum(d2, big))

@@ -23,8 +23,8 @@ seconds.
 
 Then (or alone, with ``--stages-only``) each time-chunked stage of the
 detection chain, each pass of the cross-file linker and of the
-post-processing (the ``*_BYTES_PER_PX`` of
-``tobac_flow_tpu_torch/device.py``) on
+post-processing, and validation's marker distance (the
+``*_BYTES_PER_PX`` of ``tobac_flow_tpu_torch/device.py``) on
 ``chip_smoke.deep_scene`` at each ``--stage-depths`` T, given its
 CLI-default flow: whole, (peak - allocated before) / (T x H x W), or per
 pixel of the T - 2 interior frames that the linker's pair histogram and
@@ -66,6 +66,7 @@ from tobac_flow_tpu_torch.track import file_linker, linking  # noqa: E402
 from tobac_flow_tpu_torch.segment.label import link_labels_by_overlap  # noqa: E402
 from tobac_flow_tpu_torch.utils import labels as labels_mod  # noqa: E402
 from tobac_flow_tpu_torch.utils.stats import find_overlap_mode  # noqa: E402
+from tobac_flow_tpu_torch.validate import validation  # noqa: E402
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow  # noqa: E402
 from tobac_flow_tpu_torch.ops import watershed as ws  # noqa: E402
 from tobac_flow_tpu_torch.pipeline import (  # noqa: E402
@@ -103,7 +104,7 @@ def _equal(a, b):
             return np.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True)
         return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
     if a.is_floating_point():
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
     return torch.equal(a, b)
 
 
@@ -221,6 +222,10 @@ def stage_rows(t, h, w, dev, line, only=None):
             "relabel_family", vol, None, lambda v: lut[v.long()].to(v.dtype), dev, b)), 0, 0),
         "MERGE_BYTES_PER_PX": (lambda b: in_place(lambda vol: file_linker._interior_merge(
             "merge_labels", vol, interior, other, interior, merged, lut, dev, b)), 0, 0),
+        # validation's marker distance: each frame's exact transform and the
+        # minimum over the 3-frame time margin (a 4-frame chunk reads 10)
+        "VALIDATE_BYTES_PER_PX": (lambda b: validation.get_marker_distance(
+            dense, 3, device=dev, budget_bytes=b), 3, 8),
     }
     # the frames each pass reads, where not all t
     frames = {"OVERLAP_BYTES_PER_PX": t - 2, "MERGE_BYTES_PER_PX": t - 2}

@@ -40,7 +40,8 @@ def main(argv=None):
     cs.log(f"card: {card_line}")
     ws_sweeps.build_library()
     if args.small:
-        cs.check_goes_small(device, card_line)
+        with cs.cpu_legs() as legs:
+            cs.check_goes_small(device, card_line, legs)()
     by_shape = None
     for missing in args.missing:
         cs.GOES_MISSING = tuple(int(i) for i in missing.split(","))
