@@ -105,10 +105,21 @@
 13. The SEVIRI native ingest and detection (``run_seviri``): 8 full-disk
    3712x3712 native archives (9 scans 15 minutes apart, one missing),
    written with ``write_nat`` in 8 threads, decoded and cropped to
-   448x448 by ``seviri_nat_dataloader`` (timed per file), then
+   640x640 by ``seviri_nat_dataloader`` (timed per file), then
    ``dcc_detect_seviri_nat``'s detection on the card: the gap is one NaN
    frame, every stage finds objects, and its kernel launches join the
    kernels line under their own path.
+
+The script's own host work runs beside its checks and kernel timings,
+never beside a main path whose seconds it logs: the CPU sides of the
+small card-against-CPU checks of 7 and 8 and the SEVIRI archives run in a
+spawned worker process, and the GOES and deep scenes in threads, while
+the small checks of 7-9 run on the card first; all of it is joined
+before 7's profile.  The deep chain's scene is made in threads
+beside the chunked GOES check.  The CPU sides of 11's and 12's cut checks
+run in threads beside the last kernel checks and timings, which are
+CUDA-event times of CUDA graphs; the plain versions, whose many small
+launches make them host-bound, are timed after those threads end.
 
 Kernel times are CUDA-event times of a CUDA graph of back-to-back
 launches, after a warm-up, so a launch's host cost does not count.  Each
@@ -127,6 +138,7 @@ scipy.
 
 from __future__ import annotations
 
+import atexit
 import bisect
 import gc
 import json
@@ -287,9 +299,12 @@ def log(msg):
 
 class prefetched:
     """``fn(*args)`` computed in a thread beside the card's work (host
-    scenes and files): calling the object waits for it, raises what it
-    raised, and gives (its result, the seconds it took, the seconds
-    waited for it)."""
+    scenes, files and the CPU sides of checks): calling the object waits
+    for it, raises what it raised, and gives (its result, the seconds it
+    took, the seconds the first call waited for it); later calls give the
+    same without waiting.  The script joins each before the next phase
+    whose seconds it records, so that nothing of its own runs beside a
+    timed main path."""
 
     def __init__(self, fn, *args):
         self.out = {}
@@ -305,11 +320,13 @@ class prefetched:
         self.out["seconds"] = time.perf_counter() - t0
 
     def __call__(self):
-        t0 = time.perf_counter()
-        self.thread.join()
+        if "waited" not in self.out:
+            t0 = time.perf_counter()
+            self.thread.join()
+            self.out["waited"] = time.perf_counter() - t0
         if "error" in self.out:
             raise self.out["error"]
-        return self.out["value"], self.out["seconds"], time.perf_counter() - t0
+        return self.out["value"], self.out["seconds"], self.out["waited"]
 
 
 def card():
@@ -367,12 +384,13 @@ def graph_ms(fn, arg_sets, launches, replays=3):
     warm-up replay, so that no host work sits between the launches.  Launch
     i reads ``arg_sets[i % len(arg_sets)]``; with more than one set, every
     launch's outputs are kept until the graph is freed, so that no two
-    launches of a replay write the same memory."""
+    launches of a replay write the same memory.  The capture checks this
+    thread alone: the CPU sides of checks may run in other threads."""
     fn(*arg_sets[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     kept = []
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for i in range(launches):
             out = fn(*arg_sets[i % len(arg_sets)])
             if len(arg_sets) > 1:
@@ -450,9 +468,10 @@ def check_kernel(device):
     return worst
 
 
-def time_shape_classes(device, card_line, classes=SHAPE_CLASSES, inputs=None):
+def time_shape_classes(device, card_line, classes=SHAPE_CLASSES, inputs=None, plain=True):
     """Kernel ms per launch with its inputs cold in L2 and, where one
-    launch fits in L2, warm; plain ms; and the bound, at every shape class
+    launch fits in L2, warm; plain ms (unless ``plain`` is false:
+    ``time_plain`` then times it); and the bound, at every shape class
     (connectivity 1, from the live state of ``sweep_inputs``, one set per
     shape, or ``inputs[shape]`` where given)."""
     rows, made = {}, {}
@@ -470,7 +489,7 @@ def time_shape_classes(device, card_line, classes=SHAPE_CLASSES, inputs=None):
 
         ms = graph_ms(launch, sets, graph_launches(shape))
         warm_ms = graph_ms(launch, [args], graph_launches(shape)) if len(sets) > 1 else ms
-        plain_ms = time_ms(lambda: ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k), 3)
+        plain_ms = time_plain_ms(args, k) if plain else None
         bytes_ms, ops_ms = bound(shape, k, len(IN_PLANE[1]))
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -479,10 +498,18 @@ def time_shape_classes(device, card_line, classes=SHAPE_CLASSES, inputs=None):
                                      "bytes_ms": bytes_ms, "ops_ms": ops_ms}
         log(f"ws_spatial_sweeps at {shape_key(shape, k)}, connectivity 1: kernel {ms:.4f} ms "
             f"cold ({len(sets)} input copies), {warm_ms:.4f} ms on one copy; plain PyTorch "
-            f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}; bytes {bytes_ms:.4f}, "
+            + (f"{plain_ms:.3f} ms" if plain else "timed below") + f"; bound {bound_ms:.4f} ms "
+            f"({bound_by}; bytes {bytes_ms:.4f}, "
             f"operations {ops_ms:.4f}), {100 * bound_ms / ms:.1f} % of the bound [{card_line}]")
         del args, sets
     return rows
+
+
+def time_plain_ms(args, k):
+    """The plain version's ms per call at ``args``, K = ``k``, by CUDA
+    events.  Its many small launches make it host-bound, so no host work
+    of the script may run beside it."""
+    return time_ms(lambda: ws_sweeps.spatial_sweeps_reference(*args, IN_PLANE[1], k), 3)
 
 
 def union_ms(intervals):
@@ -949,10 +976,9 @@ def run_goes(device, card_line, scene=None):
     (``recorded_stages``), its dataset, the label volumes its output stages
     started from, its fields and output dataset).  ``scene``: the scene's
     frames being made beside the earlier phases (``prefetched``)."""
-    t0 = time.perf_counter()
     if scene is None:
         scene = prefetched(goes_frames, GOES_FULL, GOES_MISSING)
-    (times, frames, x, y), made, _ = scene()
+    (times, frames, x, y), made, waited = scene()
     t1 = time.perf_counter()
     fields, ds = goes_ingest(times, frames, x, y)
     del frames
@@ -963,7 +989,7 @@ def run_goes(device, card_line, scene=None):
     area = ds["area"].values
     off_disk = np.isnan(area)
     log(f"GOES scene {GOES_FULL} less frames {GOES_MISSING}: made on the host in "
-        f"{made:.1f} s ({t1 - t0:.1f} s waited for), through the port's ingest (mask, stack, "
+        f"{made:.1f} s ({waited:.1f} s waited for), through the port's ingest (mask, stack, "
         f"NaN gap fill, geometry) in "
         f"{t2 - t1:.1f} s: {bt.shape}, NaN frames {nan_frames}, NaN pixels (bt, wvd, swd) "
         f"{nan_px}, off the disk {int(off_disk.sum())} pixels, times "
@@ -1215,15 +1241,14 @@ def run_deep(device, card_line, scene=None):
         raise AssertionError(f"deep main path: {shape} would flood whole in {total} bytes")
     own = ws.chunk_frames(t, h, w, budget - t * h * w * resident, False)
     chunk = min(own, -(-t // 3))
-    t0 = time.perf_counter()
     if scene is None or scene[0] != shape:
         scene = (shape, prefetched(deep_inputs, shape))
-    (bt, (markers, n)), made, _ = scene[1]()
+    (bt, (markers, n)), made, waited = scene[1]()
     log(f"deep main path: the card floods at most {fit} frames of {JOB_FRAME} whole "
         f"({budget / 2**30:.1f} GiB budget of {total / 2**30:.1f} GiB, "
         f"{ws.FLOOD_BYTES_PER_PX[False]} + {resident} B/px); "
         f"running {shape} ({np.prod(shape) / 1e6:.0f} Mpx, {n} markers, made on the host in "
-        f"{made:.1f} s, {time.perf_counter() - t0:.1f} s waited for); the card's own budget "
+        f"{made:.1f} s, {waited:.1f} s waited for); the card's own budget "
         f"would give "
         f"{-(-t // own)} chunks of {own} frames, this run {-(-t // chunk)} of {chunk}")
     bt_dev = torch.from_numpy(bt).to(device)
@@ -1518,7 +1543,18 @@ def deep_scene(t, h, w, seed=0, threads=8, cycle=GOES_FULL[0]):
     return fields
 
 
-def run_deep_chain(device, card_line):
+def deep_chain_most_frames(device):
+    """The most frames ``run_deep_chain`` can run: DEEP_CORES_OVER_FIT times
+    the frames that detect_cores holds whole in the card's total memory
+    less its margin, which its budget never exceeds."""
+    h, w = JOB_FRAME
+    total = torch.cuda.get_device_properties(device).total_memory
+    room = total - int(port_device.MEMORY_MARGIN * total)
+    return int(math.ceil(DEEP_CORES_OVER_FIT * (
+        room // (port_device.CORE_MARKERS_BYTES_PER_PX * h * w))))
+
+
+def run_deep_chain(device, card_line, scene):
     """The chain's stages before the floods at JOB_FRAME past the depth
     that detect_cores holds whole in the card's own budget
     (DEEP_CORES_OVER_FIT x that depth, whose whole-volume stage would need
@@ -1526,9 +1562,11 @@ def run_deep_chain(device, card_line):
     and ``get_anvil_markers`` under the card's own budget, each stage's
     seconds, peak, chunks and objects logged, every peak within the budget
     at its start, cores and markers non-empty; then ``detect_cores`` again
-    at half the chunk depth gives the same labels.  Returns the cores, the
-    anvil markers (on the card), the BT (on the host) and the times, for
-    the linking phase."""
+    at half the chunk depth gives the same labels.  ``scene``:
+    ``deep_scene`` at ``deep_chain_most_frames`` made beside an earlier
+    check (``prefetched``), whose first frames are the run's, as each
+    frame is made alone.  Returns the cores, the anvil markers (on the
+    card), the BT (on the host) and the times, for the linking phase."""
     h, w = JOB_FRAME
     opts = DetectionOptions()
     gc.collect()
@@ -1541,15 +1579,18 @@ def run_deep_chain(device, card_line):
     shape = (t, h, w)
     if t * h * w * per_px <= total:
         raise AssertionError(f"deep chain: {shape} would run detect_cores whole in {total} bytes")
-    t0 = time.perf_counter()
-    bt, wvd, swd = deep_scene(*shape)
-    made = time.perf_counter() - t0
+    full, made, waited = scene()
+    if full[0].shape[0] < t:
+        raise AssertionError(f"deep chain: a scene of {full[0].shape[0]} frames for {shape}")
+    bt, wvd, swd = (f[:t] for f in full)
+    del full
     host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
     log(f"deep chain: the card's budget ({budget / 2**30:.1f} GiB of {total / 2**30:.1f} GiB) "
         f"holds detect_cores whole ({per_px} B/px) to {fit} frames of {JOB_FRAME}; running "
         f"{shape} ({np.prod(shape) / 1e6:.0f} Mpx, whole need "
         f"{t * h * w * per_px / 2**30:.1f} GiB), scene made on the host in {made:.1f} s "
-        f"({3 * bt.nbytes / 2**30:.1f} GiB of the host's {host / 2**30:.1f} GiB)")
+        f"({waited:.1f} s waited for; {3 * bt.nbytes / 2**30:.1f} GiB of the host's "
+        f"{host / 2**30:.1f} GiB)")
     times = chain_times(t)
     fields = [port_device.place(torch.from_numpy(a), device) for a in (bt, wvd, swd)]
     del bt, wvd, swd
@@ -2206,10 +2247,10 @@ def run_statistics(linked, device, card_line):
     frames, the card's datasets equal the CPU's and, under a budget that
     runs each of ``STATS_PASSES`` in at least 3 chunks, the whole run's;
     every peak within its budget; 0 kernel launches; at least one core and
-    one anvil survive the filters, and one of each is valid.  The CPU's
-    run of the cut goes on in a thread; returns the kernel's launches by
-    shape, the windows through the detection schema (for validation) and
-    a function that finishes the cut's checks once that run is done."""
+    one anvil survive the filters, and one of each is valid.  Returns the
+    kernel's launches by shape, the windows through the detection schema
+    (for validation) and a function that starts the cut's run on the CPU
+    in a thread and gives the one that finishes the cut's checks."""
     names, store, relabelled = linked
     t0 = time.perf_counter()
     h, w = store[names[0]]["core_label"].shape[1:]
@@ -2232,29 +2273,24 @@ def run_statistics(linked, device, card_line):
         f"and the middle window's first {STATS_CHECK_FRAMES} frames through the detection schema "
         f"on the card, with the grid's pixel areas, in {time.perf_counter() - t0:.1f} s")
 
-    # the cut's run on the CPU goes on in a thread, on the host's cores,
-    # while the card works (torch's ops release the GIL)
     cut_fields = aux_fields(tuple(cut["core_label"].shape), 20, device)
-    runs = {}
 
-    def run_cut(what, dev, budget=None):
+    def cut_on(dev):
+        """The cut and its fields as ``statistics_chain`` takes them, every
+        tensor on ``dev``."""
         ds = cut_copy.open(cut_name)
+        for var in ds.data_vars.values():
+            if isinstance(var.data, torch.Tensor):
+                var.data = var.data.to(dev)
         for var in ("bt", "area", "lat", "lon"):
             ds[var] = DataArray(as_tensor(cut[var], dev), dims=cut[var].dims)
-        fields_there = _fields_on(cut_fields, dev)
+        return ds, _fields_on(cut_fields, dev)
+
+    def run_cut(ds, fields_there, dev, budget=None):
         t3 = time.perf_counter()
         out, tab = statistics_chain({cut_name: ds}, cut_links, lambda _: fields_there, dev,
                                     budget)
-        runs[what] = ({cut_name: out[cut_name], "statistics": tab}, time.perf_counter() - t3)
-
-    def run_cpu():
-        try:
-            run_cut("cpu", torch.device("cpu"))
-        except BaseException as err:  # raised again once the card's work is done
-            runs["cpu_error"] = err
-
-    cpu_leg = threading.Thread(target=run_cpu, name="statistics-cpu")
-    cpu_leg.start()
+        return {cut_name: out[cut_name], "statistics": tab}, time.perf_counter() - t3
 
     reset_counts()
     gc.collect()
@@ -2295,44 +2331,51 @@ def run_statistics(linked, device, card_line):
         f"post-processed in {seconds:.3f} s ({seconds / 3:.3f} s a window, "
         + ", ".join(f"{sum(s for what, s, *_ in steps if what.startswith(cli)):.3f} s {cli}"
                     for cli in ("relabel_postprocess", "postprocess_dcc")) + ", "
-        f"{steps[-1][1]:.3f} s dcc_statistics, the CPU's check running beside them); objects "
+        f"{steps[-1][1]:.3f} s dcc_statistics); objects "
         f"before the filters (summed over the windows) {before}, after {after}, valid {valid}; "
         f"0 kernel launches")
     del done, table
     gc.collect()
     torch.cuda.empty_cache()
 
-    def finish():
-        """The card against the CPU, and forced chunks against whole, on
-        the cut, once the CPU's run (in its thread) is done."""
-        t2 = time.perf_counter()
-        run_cut("card", device)
-        cpu_leg.join()
-        if "cpu_error" in runs:
-            raise runs["cpu_error"]
-        waited = time.perf_counter() - t2 - runs["card"][1]
-        plans = []
-        port_device._PLANS.append(plans)
-        try:
-            run_cut("chunked", device, port_device.frames_budget(STATS_CHUNK_FRAMES))
-        finally:
-            port_device._PLANS[:] = [p for p in port_device._PLANS if p is not plans]
-        fewest = {p: min((-(-t // c) for what, t, c in plans if what == p), default=0)
-                  for p in STATS_PASSES}
-        if min(fewest.values()) < 3:
-            raise AssertionError(f"statistics: a new pass ran in fewer than 3 chunks {fewest}")
-        _held_equal(runs["cpu"][0], runs["card"][0], "card against CPU")
-        _held_equal(runs["card"][0], runs["chunked"][0], "chunked against whole")
-        log(f"statistics checks on window 1's first {STATS_CHECK_FRAMES} frames "
-            f"{tuple(cut['core_label'].shape)} [{card_line}]: the card's datasets equal the "
-            f"CPU's (float64 to rtol 1e-12, float32 means and stds to 1e-5, the rest "
-            f"identical) and, with every new pass in at least 3 chunks (fewest {fewest}), the "
-            f"whole run's; card {runs['card'][1]:.1f} s, CPU {runs['cpu'][1]:.1f} s (in a "
-            f"thread from the phase's start, beside the validation phase; {waited:.1f} s "
-            f"waited for after the card's), chunked {runs['chunked'][1]:.1f} s; "
-            f"{time.perf_counter() - t2:.1f} s for the checks")
+    def start_check():
+        """Starts the cut's run on the CPU in a thread (its inputs copied
+        to the host here, so that the thread makes no CUDA call) and
+        returns a function that checks the card against it, and forced
+        chunks against whole, once it is done.  No other thread may run
+        beside that function: ``device.chunk_plan`` records every
+        thread's plans."""
+        cpu_run = prefetched(run_cut, *cut_on(torch.device("cpu")), torch.device("cpu"))
 
-    return by_shape, windows, finish
+        def finish():
+            t2 = time.perf_counter()
+            card = run_cut(*cut_on(device), device)
+            (cpu, cpu_s), _, waited = cpu_run()
+            plans = []
+            port_device._PLANS.append(plans)
+            try:
+                chunked = run_cut(*cut_on(device), device,
+                                  port_device.frames_budget(STATS_CHUNK_FRAMES))
+            finally:
+                port_device._PLANS[:] = [p for p in port_device._PLANS if p is not plans]
+            fewest = {p: min((-(-t // c) for what, t, c in plans if what == p), default=0)
+                      for p in STATS_PASSES}
+            if min(fewest.values()) < 3:
+                raise AssertionError(f"statistics: a new pass ran in fewer than 3 chunks "
+                                     f"{fewest}")
+            _held_equal(cpu, card[0], "card against CPU")
+            _held_equal(card[0], chunked[0], "chunked against whole")
+            log(f"statistics checks on window 1's first {STATS_CHECK_FRAMES} frames "
+                f"{tuple(cut['core_label'].shape)} [{card_line}]: the card's datasets equal "
+                f"the CPU's (float64 to rtol 1e-12, float32 means and stds to 1e-5, the rest "
+                f"identical) and, with every new pass in at least 3 chunks (fewest {fewest}), "
+                f"the whole run's; card {card[1]:.1f} s, CPU {cpu_s:.1f} s (in a thread "
+                f"beside the new shapes' kernel timings; {waited:.1f} s waited for), chunked "
+                f"{chunked[1]:.1f} s; {time.perf_counter() - t2:.1f} s for the checks")
+
+        return finish
+
+    return by_shape, windows, start_check
 
 
 # -- validation against GLM lightning -------------------------------------------
@@ -2502,7 +2545,9 @@ def run_validation(windows, device, card_line):
     ``VALIDATE_CHUNKED_FRAMES`` frames, under a budget that runs the
     marker distance and the per-object passes in at least 3 chunks, the
     results equal the whole run's; (e) every peak within its budget; (f)
-    POD in (0, 1], FAR in [0, 1]; (g) 0 kernel launches."""
+    POD in (0, 1], FAR in [0, 1]; (g) 0 kernel launches.  Returns the
+    kernel's launches by shape and a function that starts (c)'s run on
+    the CPU in a thread and gives the one that finishes (c)."""
     from scipy.ndimage import distance_transform_edt as scipy_edt
 
     t0 = time.perf_counter()
@@ -2537,18 +2582,9 @@ def run_validation(windows, device, card_line):
     x0 = int(min(max(cx - cw / 2, 0), w - cw))
     cut = validation_window(mid, torch.device("cpu"), slice(0, ct), slice(y0, y0 + ch),
                             slice(x0, x0 + cw))
-    runs = {}
-
-    def run_cpu(glm_cut):
-        try:
-            t3 = time.perf_counter()
-            runs["cpu"] = validate_all(cut, glm_cut, torch.device("cpu"), both=True)
-            runs["cpu_s"] = time.perf_counter() - t3
-        except BaseException as err:  # raised again once the card's work is done
-            runs["cpu_error"] = err
 
     reset_counts()
-    flashes, pods, cpu_leg, scipy_s, frame_s = {}, {}, None, 0.0, []
+    flashes, pods, scipy_s, frame_s = {}, {}, 0.0, []
     for k, name in enumerate(names):
         ds = windows[name]
         grid = glm_grid_ds(ds)
@@ -2560,10 +2596,8 @@ def run_validation(windows, device, card_line):
         if not np.array_equal(counts.cpu().numpy(), host_counts(grid, ftimes, lat, lon)):
             raise AssertionError(f"validation (a): {name}: the card's counts differ from "
                                  f"numpy's histogram2d")
-        if k == 1:  # the CPU's run of the cut, in a thread beside the card's
+        if k == 1:  # the flashes of check (c)'s cut
             glm_cut = counts[:ct, y0:y0 + ch, x0:x0 + cw].cpu().clone()
-            cpu_leg = threading.Thread(target=run_cpu, args=(glm_cut,), name="validation-cpu")
-            cpu_leg.start()
         vds = validation_window(ds, device)
         validate_all(vds, counts, device, both=k == 1, step=step)
         pods[name] = {key: vds.attrs[key] for key in sorted(vds.attrs)
@@ -2619,14 +2653,8 @@ def run_validation(windows, device, card_line):
         f"{VALIDATE_RESIDENT_BYTES_PER_PX} B/px kept whole, a 4-frame chunk and its 6 halo "
         f"frames at {port_device.VALIDATE_BYTES_PER_PX} B/px) {depth} frames")
 
-    # (c) the card against the CPU on the cut; (d) forced chunks against whole
+    # (d) forced chunks against whole
     t2 = time.perf_counter()
-    card_cut = validation_window(cut, device)
-    card_run = validate_all(card_cut, glm_cut.to(device), device, both=True)
-    cpu_leg.join()
-    if "cpu_error" in runs:
-        raise runs["cpu_error"]
-    _validated_equal(runs["cpu"], card_run, "(c) card against CPU")
     deep = validation_window(mid, device, slice(0, VALIDATE_CHUNKED_FRAMES))
     grid = glm_grid_ds(deep)
     ftimes, lat, lon = glm_flashes(deep, 40, device)
@@ -2646,13 +2674,31 @@ def run_validation(windows, device, card_line):
     _validated_equal(whole, chunked, "(d) chunked against whole")
     log(f"validation checks [{card_line}]: (a) the card's flash counts equal numpy's "
         f"histogram2d in every window; (b) its transform equals scipy's on {SCIPY_FRAMES} "
-        f"whole frames a window; (c) on window 1's first {ct} frames cut to {(ch, cw)} at "
-        f"({y0}, {x0}) the card's grids, POD, FAR and per-object distances equal the CPU's "
-        f"(CPU {runs['cpu_s']:.1f} s in a thread); (d) on its first {VALIDATE_CHUNKED_FRAMES} "
-        f"frames in forced chunks (fewest {fewest}) the whole run's; (e) every peak within "
-        f"its budget; (f) POD in (0, 1], FAR in [0, 1]; (g) 0 kernel launches; checks "
+        f"whole frames a window; (d) on window 1's first {VALIDATE_CHUNKED_FRAMES} frames in "
+        f"forced chunks (fewest {fewest}) the whole run's; (e) every peak within its budget; "
+        f"(f) POD in (0, 1], FAR in [0, 1]; (g) 0 kernel launches; checks "
         f"{time.perf_counter() - t2:.1f} s; phase {time.perf_counter() - t0:.1f} s")
-    return by_shape
+
+    def start_check():
+        """(c): starts the cut's run on the CPU in a thread and returns a
+        function that holds the card's run of the cut to it."""
+        card_cut = validation_window(cut, device)
+        cpu_run = prefetched(validate_all, cut, glm_cut, torch.device("cpu"), None, True)
+
+        def finish():
+            t2 = time.perf_counter()
+            card_run = validate_all(card_cut, glm_cut.to(device), device, both=True)
+            cpu_out, cpu_s, waited = cpu_run()
+            _validated_equal(cpu_out, card_run, "(c) card against CPU")
+            log(f"validation check (c) [{card_line}]: on window 1's first {ct} frames cut to "
+                f"{(ch, cw)} at ({y0}, {x0}) the card's grids, POD, FAR and per-object "
+                f"distances equal the CPU's (CPU {cpu_s:.1f} s in a thread beside the new "
+                f"shapes' kernel timings, {waited:.1f} s waited for); "
+                f"{time.perf_counter() - t2:.1f} s")
+
+        return finish
+
+    return by_shape, start_check
 
 
 # -- SEVIRI native ingest --------------------------------------------------------
@@ -2661,10 +2707,10 @@ SEVIRI_DISK = 3712  # the full disk's VISIR lines and columns
 SEVIRI_SCANS = 9  # 15 minutes apart
 SEVIRI_MISSING = 1  # the scan left out: a 30-minute gap, one NaN frame
 SEVIRI_CYCLE = 12  # deep_scene's cycle: its cells grow over 3.85 scans (1.4 K/min)
-# y0, y1, x0, x1: 448x448 about the disk's centre, to keep the phase near a
-# minute on an H100 and the script in its time limit (its anvil floods took
-# 86 s at 640x640, 55 s at 512x512)
-SEVIRI_CROP = (1632, 2080, 1632, 2080)
+# y0, y1, x0, x1: 640x640 about the disk's centre, where the detection finds
+# several cores (3 on the H100; 1 at 448x448) and the phase stays within
+# about two minutes (its floods took 68-87 s)
+SEVIRI_CROP = (1536, 2176, 1536, 2176)
 SEVIRI_T0 = datetime(2020, 6, 1, 12, 0)
 # each IR channel's background BT (K) over the disk, with 0.3 K of noise
 SEVIRI_BACKGROUND = {"WV_062": 226.0, "WV_073": 240.0, "IR_087": 286.0, "IR_108": 290.0,
@@ -2699,9 +2745,11 @@ def seviri_archives(directory):
     """``deep_scene``'s storm cells over ``SEVIRI_CROP`` (growing over the 9
     scans) written with ``write_nat`` as full-disk archives with the five IR
     channels, 15 minutes apart, less scan ``SEVIRI_MISSING``, into
-    ``directory`` (``SEVIRI_WORKERS`` threads).  Returns their paths."""
+    ``directory`` (``SEVIRI_WORKERS`` threads).  Returns their paths and
+    the seconds it took."""
     from concurrent.futures import ThreadPoolExecutor
 
+    t0 = time.perf_counter()
     y0, y1, x0, x1 = SEVIRI_CROP
     storm = deep_scene(SEVIRI_SCANS, y1 - y0, x1 - x0, seed=3, cycle=SEVIRI_CYCLE)
     scans = [i for i in range(SEVIRI_SCANS) if i != SEVIRI_MISSING]
@@ -2710,13 +2758,14 @@ def seviri_archives(directory):
         list(pool.map(seviri_scan, paths, scans, [[f[i] for f in storm] for i in scans],
                       [SEVIRI_DISK] * len(scans), [SEVIRI_CROP] * len(scans),
                       [3] * len(scans)))
-    return paths
+    return paths, time.perf_counter() - t0
 
 
 def run_seviri(device, card_line, archives):
     """The SEVIRI native ingest and detection: the archives of
-    ``seviri_archives`` (being written beside the earlier phases,
-    ``archives``: ``prefetched``), decoded at full width and cropped by
+    ``seviri_archives`` (``archives``: their paths, the seconds they took
+    and the seconds waited for them, written beside the earlier checks),
+    decoded at full width and cropped by
     ``seviri_nat_dataloader`` (8 threads) and timed per file, as
     ``dcc_detect_seviri_nat.detect_seviri_nat`` loads them; then its
     ``detect_fields`` on the card.  Checks: the decode equals a file's
@@ -2725,7 +2774,7 @@ def run_seviri(device, card_line, archives):
     by shape."""
     t0 = time.perf_counter()
     y0, y1, x0, x1 = SEVIRI_CROP
-    paths, written, waited = archives()
+    paths, written, waited = archives
     size = sum(os.path.getsize(p) for p in paths)
     t1 = time.perf_counter()
     bt, wvd, twd = seviri_nat_dataloader(None, None, paths, x0=x0, x1=x1, y0=y0, y1=y1)
@@ -2744,8 +2793,8 @@ def run_seviri(device, card_line, archives):
         raise AssertionError(f"SEVIRI: loaded {bt.shape}, NaN frames {np.flatnonzero(gap)}")
     log(f"SEVIRI: {len(paths)} full-disk {SEVIRI_DISK}x{SEVIRI_DISK} native archives (5 IR "
         f"channels, {size / len(paths) / 2**20:.1f} MiB each) written in {written:.1f} s "
-        f"({SEVIRI_WORKERS} threads, beside the validation phase; {waited:.1f} s waited "
-        f"for); decoded and cropped to {bt.shape[1:]} in "
+        f"({SEVIRI_WORKERS} threads of the CPU checks' worker process, beside the small "
+        f"checks; {waited:.1f} s waited for); decoded and cropped to {bt.shape[1:]} in "
         f"{decoded:.2f} s ({decoded / len(paths):.3f} s a file in 8 threads; "
         f"{one:.3f} s for a file alone) [{card_line}]; the fields reach the card unchanged, "
         f"the gap is one NaN frame")
@@ -2770,10 +2819,14 @@ def run_seviri(device, card_line, archives):
     return launches, by_shape
 
 
-def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
+def check_and_time_new_shapes(by_shape, per_shape, device, card_line, before_plain=None):
     """The kernel against its plain version (bit-equal, connectivity 1) and
-    timed at every (shape, K) of ``by_shape`` that ``per_shape`` lacks."""
+    timed at every (shape, K) of ``by_shape`` that ``per_shape`` lacks.
+    With ``before_plain``, the plain versions are timed after it returns,
+    their inputs kept until then: the kernel's times (CUDA graphs) do not
+    see host work that runs until then, the plain version's would."""
     worst = 0.0
+    kept = {}
     keys = {}
     for key in sorted(set(by_shape) - set(per_shape)):
         dims, k = key.split(" K=")
@@ -2793,8 +2846,19 @@ def check_and_time_new_shapes(by_shape, per_shape, device, card_line):
             log(f"kernel == plain (bit-equal) at {key}, connectivity 1")
             del plain, kern
         per_shape.update(time_shape_classes(device, card_line, [(shape, k) for k in ks],
-                                            {shape: args}))
+                                            {shape: args}, plain=before_plain is None))
+        if before_plain is not None:
+            kept[shape] = (args, ks)
         del args
+    if before_plain is not None:
+        before_plain()
+        for shape, (args, ks) in kept.items():
+            for k in ks:
+                row = per_shape[shape_key(shape, k)]
+                row["plain_ms"] = time_plain_ms(args, k)
+                log(f"ws_spatial_sweeps at {shape_key(shape, k)}, connectivity 1: plain PyTorch "
+                    f"{row['plain_ms']:.3f} ms, {100 * row['bound_ms'] / row['plain_ms']:.3f} % "
+                    f"of the bound [{card_line}]")
     return worst
 
 
@@ -2901,58 +2965,80 @@ def main():
                                                  "the bench slice")
     del bt_dev, first
 
-    # the detection chain: card against CPU on a small scene and its profile
-    # at the bench frame; then the GOES ingest's output through it, card
-    # against CPU on a small scene and timed on the CONUS-shaped scene
+    # the small checks, card against CPU: the detection chain, the GOES
+    # ingest's output through it and the time-chunked flood, with their CPU
+    # sides and the SEVIRI archives in a worker process and the GOES and
+    # deep scenes in threads.  All of that is joined before the chain's
+    # profile, so that nothing of the script's own runs beside a timed main
+    # path from there on.
+    seviri_dir = ws_sweeps._BUILD_DIR / "seviri"
+    shutil.rmtree(seviri_dir, ignore_errors=True)
+    seviri_dir.mkdir(parents=True)
+    atexit.register(shutil.rmtree, seviri_dir, True)
     with cpu_legs() as legs:
         small = check_chain_small(device, card_line, legs)
-        small_by_shape = check_chunked_chain_small(small, card_line)
-        chain_profiled_ms, chain_profiled_launches = profile_chain(device, card_line)
         goes_scene = prefetched(goes_frames, GOES_FULL, GOES_MISSING)
+        small_by_shape = check_chunked_chain_small(small, card_line)
         finish_goes_small = check_goes_small(device, card_line, legs)
-        goes_launches, goes_by_shape, goes_record = run_goes(device, card_line, goes_scene)
-        check_chunked_goes(goes_record, device, card_line)
-        del goes_record
+        archives = legs.submit(seviri_archives, str(seviri_dir))
+        deep_at = deep_shape(device)[0]
+        deep_scene_made = (deep_at, prefetched(deep_inputs, deep_at))
+        check_chunked_small(device, card_line)
         small[3]()
         finish_goes_small()
+        t0 = time.perf_counter()
+        seviri_paths, seviri_written = archives.result()
+        seviri_archived = (seviri_paths, seviri_written, time.perf_counter() - t0)
         del small
+    goes_scene()
+    deep_scene_made[1]()
 
-    # the time-chunked flood: card against CPU, chunked against whole at
-    # the job's frame, then the main path past what the card floods whole
-    deep_at = deep_shape(device)[0]
-    deep_scene_made = (deep_at, prefetched(deep_inputs, deep_at))
-    check_chunked_small(device, card_line)
+    # the chain's profile at the bench frame, the CONUS-shaped GOES run, then
+    # the chunked chain against it while the deep chain's scene is made
+    chain_profiled_ms, chain_profiled_launches = profile_chain(device, card_line)
+    goes_launches, goes_by_shape, goes_record = run_goes(device, card_line, goes_scene)
+    del goes_scene
+    chain_scene = prefetched(deep_scene, deep_chain_most_frames(device), *JOB_FRAME)
+    check_chunked_goes(goes_record, device, card_line)
+    del goes_record
+    chain_scene()
+
+    # the time-chunked flood: chunked against whole at the job's frame, then
+    # the main path past what the card floods whole
     fit_by_shape = run_chunked_fit(device, card_line)
     deep_launches, deep_by_shape = run_deep(device, card_line, deep_scene_made)
     del deep_scene_made
     # cross-file linking: the recorded windows against the JAX record, then
     # three windows cut from the deep chain's volumes at the job's frame
     check_linking_small(device, card_line)
-    link_by_shape, linked = run_deep_linking(run_deep_chain(device, card_line), device,
-                                             card_line)
-    # statistics and post-processing of the linked windows
-    stats_by_shape, windows, finish_statistics = run_statistics(linked, device, card_line)
+    link_by_shape, linked = run_deep_linking(run_deep_chain(device, card_line, chain_scene),
+                                             device, card_line)
+    del chain_scene
+    # statistics and post-processing of the linked windows, their validation
+    # against seeded GLM flashes, and the SEVIRI ingest and detection
+    stats_by_shape, windows, start_statistics_check = run_statistics(linked, device, card_line)
     del linked
-    # validation of the three windows against seeded GLM flashes, while the
-    # statistics' CPU check runs on in its thread and the SEVIRI archives
-    # are written; then that check, and the SEVIRI ingest and detection
-    seviri_dir = ws_sweeps._BUILD_DIR / "seviri"
+    validation_by_shape, start_validation_check = run_validation(windows, device, card_line)
+    del windows
+    gc.collect()
+    torch.cuda.empty_cache()
+    seviri_launches, seviri_by_shape = run_seviri(device, card_line, seviri_archived)
     shutil.rmtree(seviri_dir, ignore_errors=True)
-    seviri_dir.mkdir(parents=True)
-    archives = prefetched(seviri_archives, seviri_dir)
-    try:
-        validation_by_shape = run_validation(windows, device, card_line)
-        del windows
+    # the kernel at the new shapes checked and timed in CUDA graphs while the
+    # CPU sides of the statistics' and validation's cut checks run in
+    # threads; then those checks ((c) first, as the statistics' forced
+    # chunks need no other thread beside them), and the plain versions'
+    # host-bound times with nothing beside them
+    finish_validation = start_validation_check()
+    finish_statistics = start_statistics_check()
+
+    def finish_checks():
+        finish_validation()
         finish_statistics()
-        gc.collect()
-        torch.cuda.empty_cache()
-        seviri_launches, seviri_by_shape = run_seviri(device, card_line, archives)
-    finally:
-        archives.thread.join()
-        shutil.rmtree(seviri_dir, ignore_errors=True)
+
     worst = max(worst, check_and_time_new_shapes(
         {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape, **seviri_by_shape},
-        per_shape, device, card_line))
+        per_shape, device, card_line, finish_checks))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape,
              "statistics": stats_by_shape, "validation": validation_by_shape,

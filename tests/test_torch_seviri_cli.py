@@ -111,8 +111,9 @@ def test_cli_given_jax_flows_writes_the_reference_file(tmp_path, monkeypatch, ki
         return flow
 
     module = CLIS[kind]
-    monkeypatch.setattr(module, "DetectionOptions", partial(module.DetectionOptions,
-                                                            flow_factory=given))
+    # both CLIs detect through dcc_detect_seviri_nat.detect_fields
+    monkeypatch.setattr(dcc_detect_seviri_nat, "DetectionOptions",
+                        partial(dcc_detect_seviri_nat.DetectionOptions, flow_factory=given))
     (tmp_path / "in").mkdir()
     paths = write_scene(tmp_path / "in", kind)
     got = module.main(cli_args(kind, paths, tmp_path / "out") + ["--device", "cpu"])

@@ -299,3 +299,12 @@ def test_entry_points_default_to_cuda(scene):
         tval.validate_markers(scene[1], scene[-1], None, np.ones(SHAPE, bool))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tval.get_edge_filter(SHAPE)
+    # a dataset read into numpy (as ``open_dataset`` gives it) goes to CUDA
+    # too; one whose core labels are a CPU tensor stays on the CPU
+    ds = _dataset(tnc, scene)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tval.get_edge_filter(ds)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tval.validate_cores(ds, scene[-1])
+    ds["core_label"] = tnc.DataArray(torch.from_numpy(scene[1]), dims=("t", "y", "x"))
+    assert tval.get_edge_filter(ds).device.type == "cpu"

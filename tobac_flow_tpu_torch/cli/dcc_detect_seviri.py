@@ -3,7 +3,8 @@
 file name, ``detected_dccs_SEVIRI_S*.nc``, and ``--device``): one file per
 time step holding IR_108, WV_062, WV_073, IR_087 and IR_120 (or ORAC's
 ``ch5``, ``ch6``, ``ch9``, ``ch10``), cropped to ``-x0..-y1``, through the
-detection (on the CUDA card unless ``--device cpu``).
+detection (``dcc_detect_seviri_nat.detect_fields``, on the CUDA card unless
+``--device cpu``).
 
 Usage: python -m tobac_flow_tpu_torch.cli.dcc_detect_seviri SEVIRI_DIR/*.nc -sd OUT
 
@@ -15,12 +16,11 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-from datetime import datetime
 
-from tobac_flow_tpu_torch.cli.common import DetectionOptions, run_detection, save_dataset
-from tobac_flow_tpu_torch.cli.dcc_detect_seviri_nat import save_name
+from tobac_flow_tpu_torch.cli.common import save_dataset
+from tobac_flow_tpu_torch.cli.dcc_detect_seviri_nat import detect_fields
 from tobac_flow_tpu_torch.data.dataloader import seviri_dataloader
-from tobac_flow_tpu_torch.data.ncdataset import Dataset, require_h5py
+from tobac_flow_tpu_torch.data.ncdataset import require_h5py
 from tobac_flow_tpu_torch.device import resolve_device
 
 
@@ -44,18 +44,10 @@ def main(argv=None):
     )
     save_dir = pathlib.Path(args.sd)
     save_dir.mkdir(parents=True, exist_ok=True)
-    opts = DetectionOptions(
-        save_spatial_props=args.save_spatial_props,
-        checkpoint_path=save_dir / "dcc_detect_seviri.checkpoint.nc",
-    )
-    ds = run_detection(bt, wvd, swd, Dataset(coords=dict(bt.coords)), opts=opts,
-                       device=device)
-    ds.attrs.update(
-        title="Detected DCCs in Meteosat SEVIRI observations (tobac-flow-tpu)",
-        history=f"Processed on {datetime.now().isoformat()}",
-        references="https://doi.org/10.5194/amt-16-1043-2023",
-    )
-    save_path = save_dir / save_name(bt)
+    ds, name = detect_fields(
+        bt, wvd, swd, args.save_spatial_props, save_dir / "dcc_detect_seviri.checkpoint.nc",
+        device, title="Detected DCCs in Meteosat SEVIRI observations (tobac-flow-tpu)")
+    save_path = save_dir / name
     save_dataset(ds, save_path)
     return save_path
 

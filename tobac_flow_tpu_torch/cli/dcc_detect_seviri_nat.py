@@ -30,18 +30,22 @@ def save_name(bt):
     return f"detected_dccs_SEVIRI_S{start}.nc"
 
 
+TITLE = "Detected DCCs in Meteosat SEVIRI native observations (tobac-flow-tpu)"
+
+
 def detect_fields(bt, wvd, twd, save_spatial_props=False, checkpoint_path=None, device=None,
-                  stats=None, budget_bytes=None):
+                  stats=None, budget_bytes=None, title=TITLE):
     """The detection of the loaded fields (DataArrays) with
     ``DetectionOptions()`` on ``device`` (CUDA by default; ``stats`` and
-    ``budget_bytes`` as ``run_detection`` takes them).  Returns (the
-    dataset, its file name)."""
+    ``budget_bytes`` as ``run_detection`` takes them), the dataset titled
+    ``title``: the work of this CLI and of ``dcc_detect_seviri``.
+    Returns (the dataset, its file name)."""
     opts = DetectionOptions(save_spatial_props=save_spatial_props,
                             checkpoint_path=checkpoint_path)
     ds = run_detection(bt, wvd, twd, Dataset(coords=dict(bt.coords)), opts=opts,
                        device=device, stats=stats, budget_bytes=budget_bytes)
     ds.attrs.update(
-        title="Detected DCCs in Meteosat SEVIRI native observations (tobac-flow-tpu)",
+        title=title,
         history=f"Processed on {datetime.now().isoformat()}",
         references="https://doi.org/10.5194/amt-16-1043-2023",
     )

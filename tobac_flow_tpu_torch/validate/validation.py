@@ -177,17 +177,15 @@ def validate_markers(labels, glm_grid, glm_distance, edge_filter, n_glm_in_margi
 
 def get_edge_filter(ds_or_shape, t_coord=None, margin=10, max_time_gap=900, glm_cover=None,
                     device=None):
-    """Mask (bool, on ``device``, or a dataset's core labels' device by
-    default) that excludes the spatial margin (``margin=0`` excludes
+    """Mask (bool, on ``device``; for a dataset by default on its core
+    labels' device where they are a tensor, else on CUDA) that excludes the spatial margin (``margin=0`` excludes
     everything, as the reference's ``[-0:]`` does), the first and last
     frames, the frames each side of a time gap over ``max_time_gap``
     seconds, and where ``glm_cover`` is false."""
     if hasattr(ds_or_shape, "coords"):
-        labels = ds_or_shape["core_label"]
-        shape = tuple(labels.shape)
+        shape = tuple(ds_or_shape["core_label"].shape)
         t_coord = ds_or_shape.coords["t"]
-        if device is None:
-            device = as_tensor(labels).device
+        device = _dataset_device(ds_or_shape, "core_label", device)
     else:
         shape = tuple(ds_or_shape)
     filt = torch.ones(shape, dtype=torch.bool, device=resolve_device(device))
