@@ -109,14 +109,32 @@
    ``dcc_detect_seviri_nat``'s detection on the card: the gap is one NaN
    frame, every stage finds objects, and its kernel launches join the
    kernels line under their own path.
+14. The configured detection: a ``PipelineConfig`` (``CONFIGURED``: DIS
+   flow, Lanczos smoothing, core subsegmentation) written as JSON and
+   read back.  (a) Card against CPU (the CPU's sides in the worker
+   process, beside the small checks of 7-9): each of the six flow models
+   on 3 pairs of ``make_multistorm_scene(5, 128, 192)`` within the
+   Farneback gate; ``subsegment_labels`` of its cold cores identical; the
+   configuration through ``cli.common.run_detection`` at (9, 48, 64)
+   given the card's flows, the same dataset.  (b) At the GOES job's frame
+   (8's CONUS-shaped scene, 9x1500x2500 with its NaN frame): the
+   configured chain's ``create_flow``, ``detect_cores`` and
+   ``get_anvil_markers`` (whose subsegmentation floods in plane), with
+   the kernel's counts reset before and read after (the kernels line's
+   ``run_detection_configured``), then ``create_flow`` with each other
+   model: seconds, peak over the start against the budget, groups of
+   pairs and objects; flows finite off the gap frame and within the clip,
+   cores and anvil markers found; the anvil marker mask's subsegmentation
+   in forced 4-frame time chunks equal to the whole volume's.  The anvil
+   floods under these flows are left to (a).
 
 The script's own host work runs beside its checks and kernel timings,
 never beside a main path whose seconds it logs: the CPU sides of the
-small card-against-CPU checks of 7 and 8 and the SEVIRI archives run in a
-spawned worker process, and the GOES and deep scenes in threads, while
-the small checks of 7-9 run on the card first; all of it is joined
-before 7's profile.  The deep chain's scene is made in threads
-beside the chunked GOES check.  The CPU sides of 11's and 12's cut checks
+small card-against-CPU checks of 7-9 and 14 (a) and the SEVIRI archives
+run in a spawned worker process, and the GOES and deep scenes in
+threads, while those checks run on the card first; all of it is joined
+before 7's profile.  The deep chain's scene is made
+in threads beside the chunked GOES check.  The CPU sides of 11's and 12's cut checks
 run in threads beside the last kernel checks and timings, which are
 CUDA-event times of CUDA graphs; the plain versions, whose many small
 launches make them host-bound, are timed after those threads end.
@@ -175,10 +193,13 @@ from tobac_flow_tpu_torch.detect import chain as chain_mod
 from tobac_flow_tpu_torch.detect.chain import STAGES as CHAIN_STAGES
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions
 from tobac_flow_tpu_torch.detect.detection import detect_cores, get_anvil_markers
+from tobac_flow_tpu_torch.models import select_of_model
 from tobac_flow_tpu_torch.models.farneback import FarnebackFlow
 from tobac_flow_tpu_torch.ops import watershed as ws
 from tobac_flow_tpu_torch.ops import ws_sweeps
-from tobac_flow_tpu_torch.pipeline import _normalise_pair, fused_flow_watershed, pair_flows
+from tobac_flow_tpu_torch.pipeline import (
+    _normalise_pair, fused_flow_watershed, pair_flows,
+)
 from tobac_flow_tpu_torch.track import file_linker, linking
 from tobac_flow_tpu_torch.track.store import MemoryStore
 from tobac_flow_tpu_torch.utils.datetime_utils import (
@@ -339,21 +360,25 @@ def card():
 
 def sweep_inputs(shape, seed, device, in_plane=IN_PLANE[1]):
     """A flood part-way through, as (claim, claim2, meta, field, seeded,
-    floodable): a quantised field (plateaus), a seed on about 1 % of pixels
-    with a label from 1..24 or the -1 barrier, 10 % unmasked pixels, and the
-    state after 8 plain sweeps from those seeds.  At (3, 230, 257) and
-    connectivity 1, 64 % of pixels then hold a label and the next 8 sweeps
-    change 58 % of them."""
-    rng = np.random.default_rng(seed)
-    field = np.round(rng.uniform(0, 1, shape) * 16).astype(np.float32) / 16
-    seeded = rng.uniform(0, 1, shape) < 0.01
-    labels = rng.integers(0, 25, shape).astype(np.int32)
+    floodable), drawn on ``device`` from a generator seeded by ``seed``: a
+    quantised field (plateaus), a seed on about 1 % of pixels with a label
+    from 1..24 or the -1 barrier, 10 % unmasked pixels, and the state after
+    8 plain sweeps from those seeds.  At (3, 230, 257) and connectivity 1,
+    about 64 % of pixels then hold a label and the next 8 sweeps change
+    about 58 % of them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform():
+        return torch.rand(shape, generator=gen, device=device)
+
+    field = torch.round(uniform() * 16) / 16
+    seeded = uniform() < 0.01
+    labels = torch.randint(0, 25, shape, generator=gen, device=device, dtype=torch.int32)
     labels[labels == 0] = -1
-    floodable = (rng.uniform(0, 1, shape) > 0.1) & ~seeded
-    claim = np.where(seeded, -np.inf, np.inf).astype(np.float32)
-    meta = np.where(seeded, labels + 2, 2**31 - 1).astype(np.int32)
-    args = [torch.from_numpy(a).to(device)
-            for a in (claim, claim.copy(), meta, field, seeded, floodable)]
+    floodable = (uniform() > 0.1) & ~seeded
+    claim = torch.where(seeded, -math.inf, math.inf)
+    meta = torch.where(seeded, labels + 2, 2**31 - 1).to(torch.int32)
+    args = [claim, claim.clone(), meta, field, seeded, floodable]
     args[:3] = ws_sweeps.spatial_sweeps_reference(*args, in_plane, 8)
     return args
 
@@ -644,14 +669,34 @@ def chain_inputs(bt, wvd, swd, times):
 CPU_LEG_THREADS = 4  # a worker process's intra-op threads, beside the card's host thread
 
 
-def cpu_detection(fields, ds, fwd, bwd):
+def cpu_chain_flows(bt, raw, kw):
+    """The CPU's CLI-default flow of ``bt``, and the same refinement and
+    smoothing of the card's raw Farneback flows ``raw`` on the CPU (all
+    numpy, clipped): the CPU side of ``check_chain_small``'s flow check,
+    run in a worker process (``cpu_legs``)."""
+    torch.set_num_threads(CPU_LEG_THREADS)
+    cpu = create_flow(bt, device="cpu", **kw)
+    again = pair_flows(bt, GivenFlows(torch.from_numpy(raw)), device="cpu", **kw)
+    return (cpu.forward_flow.numpy(), cpu.backward_flow.numpy(),
+            *(f.clamp(-20, 20).numpy() for f in again))
+
+
+def cpu_detection(fields, ds, fwd, bwd, config=None):
     """``cli.run_detection`` on the CPU given the flows (numpy), with the
-    anvil markers and spatial properties saved: the CPU side of a
-    card-against-CPU check, run in a worker process (``cpu_legs``)."""
+    anvil markers saved (and, without a ``config``, the spatial
+    properties): the CPU side of a card-against-CPU check, run in a worker
+    process (``cpu_legs``).  ``config``: ``PipelineConfig`` fields whose
+    ``detection_options()`` to run with."""
+    from tobac_flow_tpu_torch.config import PipelineConfig
+
     torch.set_num_threads(CPU_LEG_THREADS)
     flow = Flow(torch.from_numpy(fwd), torch.from_numpy(bwd))
-    opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True,
-                            flow_factory=lambda _: flow)
+    if config is None:
+        opts = DetectionOptions(save_anvil_markers=True, save_spatial_props=True)
+    else:
+        opts = PipelineConfig(**config).detection_options()
+        opts.save_anvil_markers = True
+    opts.flow_factory = lambda _: flow
     return cli.run_detection(*fields, ds, opts=opts, device="cpu")
 
 
@@ -682,8 +727,8 @@ def check_chain_small(device, card_line, legs):
     card's Farneback flows.  Given the same flows, the datasets (labels of
     every stage, anvil markers and spatial properties included) are the
     same: identical but the float means and stds, which are held to the
-    CPU tests' tolerance; and no stage is empty.  The CPU's run goes on in
-    ``legs``' worker process.  Returns the scene (its fields with the NaN
+    CPU tests' tolerance; and no stage is empty.  The CPU's flows and run
+    go on in ``legs``' worker process.  Returns the scene (its fields with the NaN
     patch and times), the card's flow, the card's dataset, and a function
     that waits for the CPU's dataset and checks it against the card's."""
     opts = DetectionOptions()
@@ -694,26 +739,11 @@ def check_chain_small(device, card_line, legs):
     gpu = create_flow(bt, **kw)
     if gpu.device.type != device.type:
         raise AssertionError(f"create_flow ran on {gpu.device}, not on the card")
-    cpu = create_flow(bt, device="cpu", **kw)
     frames = torch.from_numpy(bt).to(device)
     p8, n8 = _normalise_pair(frames[:-1], frames[1:])
     raw = FarnebackFlow().to(device)(torch.cat([p8, n8]), torch.cat([n8, p8])).cpu()
-    again = [f.clamp(-20, 20) for f in pair_flows(bt, GivenFlows(raw), device="cpu", **kw)]
-    storm = bt < 250
-    checked, worst = 0, 0.0
-    for g, c, a in zip(gpu.flow, cpu.flow, again):
-        g, c, a = g.cpu().numpy(), c.numpy(), a.numpy()
-        for t in range(CHAIN_SMALL[0]):
-            if storm[t].any() and within(a[t], c[t], storm[t]):
-                if not within(g[t], c[t], storm[t]):
-                    raise AssertionError(f"chain small: card flow vs CPU flow at frame {t}")
-                checked += 1
-                worst = max(worst, float(np.abs(g[t] - c[t])[storm[t]].max()))
-    if checked < 6:
-        raise AssertionError(f"chain small: only {checked} frames reproducible on the CPU")
-    log(f"chain small {CHAIN_SMALL}: card vs CPU CLI-default flow within the Farneback "
-        f"tolerance on the {checked} of {2 * CHAIN_SMALL[0]} frames the CPU reproduces, "
-        f"max |card - CPU| there {worst:.3g} px")
+    cpu_flows = legs.submit(cpu_chain_flows, bt, raw.numpy(), kw)
+    gpu_flows = [f.cpu().numpy() for f in gpu.flow]
     wvd[3:6, 20:26, 40:46] = np.nan  # missing data at a cell's edge, as the CPU tests
     cpu_run = legs.submit(cpu_detection, *chain_inputs(bt, wvd, swd, times),
                           gpu.forward_flow.cpu().numpy(), gpu.backward_flow.cpu().numpy())
@@ -723,6 +753,21 @@ def check_chain_small(device, card_line, legs):
     card_out = cli.run_detection(*fields, ds, opts=opts)
 
     def finish():
+        storm = bt < 250
+        checked, worst = 0, 0.0
+        cpu_fwd, cpu_bwd, again_fwd, again_bwd = cpu_flows.result()
+        for g, c, a in zip(gpu_flows, (cpu_fwd, cpu_bwd), (again_fwd, again_bwd)):
+            for t in range(CHAIN_SMALL[0]):
+                if storm[t].any() and within(a[t], c[t], storm[t]):
+                    if not within(g[t], c[t], storm[t]):
+                        raise AssertionError(f"chain small: card flow vs CPU flow at frame {t}")
+                    checked += 1
+                    worst = max(worst, float(np.abs(g[t] - c[t])[storm[t]].max()))
+        if checked < 6:
+            raise AssertionError(f"chain small: only {checked} frames reproducible on the CPU")
+        log(f"chain small {CHAIN_SMALL}: card vs CPU CLI-default flow within the Farneback "
+            f"tolerance on the {checked} of {2 * CHAIN_SMALL[0]} frames the CPU reproduces, "
+            f"max |card - CPU| there {worst:.3g} px (the CPU's flows in the worker process)")
         cpu_out = cpu_run.result()
         counts = {name: int(cpu_out[name].values.max()) for name in CHAIN_LABELS}
         if min(counts.values()) == 0 or min(cpu_out.coords[c].size for c in CLI_COORDS) == 0:
@@ -1122,11 +1167,24 @@ def chunk_line(stats):
                 f"{k} {v}" for k, v in sorted(stats.items()) if k.endswith("rounds")))
 
 
-def check_chunked_small(device, card_line):
+def cpu_chunked_flood(fwd, bwd, edges, markers, mask, budget):
+    """The time-chunked flood on the CPU (numpy in, labels and stats out):
+    the CPU side of ``check_chunked_small``, run in a worker process
+    (``cpu_legs``)."""
+    torch.set_num_threads(CPU_LEG_THREADS)
+    stats = {}
+    labels = ws.watershed(*(torch.from_numpy(a) for a in (fwd, bwd, edges, markers, mask)),
+                          max_iters=128, stats=stats, budget_bytes=budget, device="cpu")
+    return labels.numpy(), stats
+
+
+def check_chunked_small(device, card_line, legs):
     """The time-chunked flood on the card against the CPU at CHUNK_SMALL,
     3 chunks, with the slice's markers and with a -1 barrier ring added
     inside the mask, given the same inputs (the CPU's flow and fields):
-    identical labels."""
+    identical labels.  The CPU's floods run in ``legs``' worker process;
+    returns a function that waits for them and checks the card's labels
+    against them."""
     from tobac_flow_tpu_torch.pipeline import _fields_stage
 
     bt = make_scene(*CHUNK_SMALL)
@@ -1135,24 +1193,34 @@ def check_chunked_small(device, card_line):
     markers = torch.from_numpy(markers)
     mask = field > 0.05
     mixed = torch.where((markers == 0) & mask & (field < 0.1), -1, markers)
+    runs = []
     for kind, mk in (("plain", markers), ("mixed", mixed)):
         budget = chunk_budget(CHUNK_SMALL, kind == "mixed", 4)
-        out = {}
-        for where in ("cpu", "card"):
-            stats = {}
-            reset_counts()
-            labels = ws.watershed(fwd, bwd, edges, mk, mask=mask, max_iters=128, stats=stats,
-                                  budget_bytes=budget, device="cpu" if where == "cpu" else None)
-            out[where] = (labels.cpu(), stats, ws_sweeps.spatial_sweeps.launches)
-        (cpu, st_cpu, _), (card, st_card, launches) = out["cpu"], out["card"]
-        if st_card.get("chunks", 0) < 3 or launches == 0:
-            raise AssertionError(f"chunked small {kind}: {st_card.get('chunks')} chunks, "
+        cpu_run = legs.submit(cpu_chunked_flood, *(a.numpy() for a in (fwd, bwd, edges, mk,
+                                                                         mask)), budget)
+        stats = {}
+        reset_counts()
+        card = ws.watershed(fwd, bwd, edges, mk, mask=mask, max_iters=128, stats=stats,
+                            budget_bytes=budget)
+        launches = ws_sweeps.spatial_sweeps.launches
+        if stats.get("chunks", 0) < 3 or launches == 0:
+            raise AssertionError(f"chunked small {kind}: {stats.get('chunks')} chunks, "
                                  f"{launches} launches")
-        if not torch.equal(cpu, card) or st_cpu != st_card:
-            raise AssertionError(f"chunked small {kind}: card labels differ from the CPU's at "
-                                 f"{int((cpu != card).sum())} pixels ({st_card} vs {st_cpu})")
-        log(f"chunked flood {CHUNK_SMALL} {kind} markers: the card's labels equal the CPU's "
-            f"({chunk_line(st_card)}; {launches} kernel launches)")
+        runs.append((kind, cpu_run, card.cpu(), stats, launches))
+
+    def finish():
+        for kind, cpu_run, card, st_card, launches in runs:
+            cpu, st_cpu = cpu_run.result()
+            cpu = torch.from_numpy(cpu)
+            if not torch.equal(cpu, card) or st_cpu != st_card:
+                raise AssertionError(f"chunked small {kind}: card labels differ from the CPU's "
+                                     f"at {int((cpu != card).sum())} pixels ({st_card} vs "
+                                     f"{st_cpu})")
+            log(f"chunked flood {CHUNK_SMALL} {kind} markers: the card's labels equal the CPU's "
+                f"({chunk_line(st_card)}; {launches} kernel launches; the CPU's flood in the "
+                f"worker process)")
+
+    return finish
 
 
 def run_chunked_fit(device, card_line):
@@ -1308,8 +1376,10 @@ STAGE_STEPS = {
 }
 CHUNK_CAP = 4  # frames a forced chunk holds at most
 # the deep phase's depth over the most frames detect_cores holds whole in
-# the card's own budget (CORE_MARKERS_BYTES_PER_PX): past the card's total
-DEEP_CORES_OVER_FIT = 1.25
+# the card's own budget (CORE_MARKERS_BYTES_PER_PX): 116 frames for a fit of
+# 108 on an H100 80GB HBM3 (1.25, 135 frames, past the card's whole memory,
+# until the configured detection's phase needed the time)
+DEEP_CORES_OVER_FIT = 1.07
 
 
 def stage_budget(name, shape, frames=CHUNK_CAP):
@@ -1557,11 +1627,11 @@ def deep_chain_most_frames(device):
 def run_deep_chain(device, card_line, scene):
     """The chain's stages before the floods at JOB_FRAME past the depth
     that detect_cores holds whole in the card's own budget
-    (DEEP_CORES_OVER_FIT x that depth, whose whole-volume stage would need
-    more than the card's total memory): ``create_flow``, ``detect_cores``
+    (DEEP_CORES_OVER_FIT x that depth): ``create_flow``, ``detect_cores``
     and ``get_anvil_markers`` under the card's own budget, each stage's
     seconds, peak, chunks and objects logged, every peak within the budget
-    at its start, cores and markers non-empty; then ``detect_cores`` again
+    at its start, ``detect_cores`` in at least 2 chunks, cores and markers
+    non-empty; then ``detect_cores`` again
     at half the chunk depth gives the same labels.  ``scene``:
     ``deep_scene`` at ``deep_chain_most_frames`` made beside an earlier
     check (``prefetched``), whose first frames are the run's, as each
@@ -1577,8 +1647,8 @@ def run_deep_chain(device, card_line, scene):
     fit = budget // (per_px * h * w)
     t = int(math.ceil(DEEP_CORES_OVER_FIT * fit))
     shape = (t, h, w)
-    if t * h * w * per_px <= total:
-        raise AssertionError(f"deep chain: {shape} would run detect_cores whole in {total} bytes")
+    if t <= fit:
+        raise AssertionError(f"deep chain: {shape} would run detect_cores whole in the budget")
     full, made, waited = scene()
     if full[0].shape[0] < t:
         raise AssertionError(f"deep chain: a scene of {full[0].shape[0]} frames for {shape}")
@@ -1601,6 +1671,9 @@ def run_deep_chain(device, card_line, scene):
     def run(name, fn, extra=None):
         gc.collect()
         torch.cuda.synchronize()
+        # the budget as the stage's own planner sees it: the blocks that the
+        # allocator caches from the stage before are free to it
+        torch.cuda.empty_cache()
         budgets[name] = port_device.memory_budget(device)
         with port_device.stage(name, stats, device):
             result = fn()
@@ -1621,9 +1694,14 @@ def run_deep_chain(device, card_line, scene):
     names = ("flow", "detect_cores", "anvil_markers")
     over = [n for n in names
             if stats[f"{n}_peak_bytes"] - stats[f"{n}_start_bytes"] > budgets[n]]
-    if over or stats["detect_cores_n"] == 0 or stats["anvil_markers_n"] == 0:
+    if (over or stats["detect_cores_n"] == 0 or stats["anvil_markers_n"] == 0
+            or stats.get("detect_cores_chunks", 1) < 2):
         raise AssertionError(f"deep chain: peaks over budget {over}; objects "
-                             f"{stats['detect_cores_n']}, {stats['anvil_markers_n']}")
+                             f"{stats['detect_cores_n']}, {stats['anvil_markers_n']}; "
+                             f"{stats.get('detect_cores_chunks', 1)} chunks; " + ", ".join(
+                                 f"{n} peak {stats[n + '_peak_bytes']} start "
+                                 f"{stats[n + '_start_bytes']} budget {budgets[n]}"
+                                 for n in names))
     log(f"deep chain {shape} [{card_line}]: " + "; ".join(
         f"{n} {stats[n + '_s']:.3f} s, peak {stats[n + '_peak_bytes'] / 2**30:.3f} GiB "
         f"({(stats[n + '_peak_bytes'] - stats[n + '_start_bytes']) / 2**30:.3f} over its start, "
@@ -2708,8 +2786,8 @@ SEVIRI_SCANS = 9  # 15 minutes apart
 SEVIRI_MISSING = 1  # the scan left out: a 30-minute gap, one NaN frame
 SEVIRI_CYCLE = 12  # deep_scene's cycle: its cells grow over 3.85 scans (1.4 K/min)
 # y0, y1, x0, x1: 640x640 about the disk's centre, where the detection finds
-# several cores (3 on the H100; 1 at 448x448) and the phase stays within
-# about two minutes (its floods took 68-87 s)
+# several cores (3 on the H100; 1 at 448x448 and at 512x512) and the phase
+# stays within about two minutes (its floods took 63-87 s)
 SEVIRI_CROP = (1536, 2176, 1536, 2176)
 SEVIRI_T0 = datetime(2020, 6, 1, 12, 0)
 # each IR channel's background BT (K) over the disk, with 0.3 K of noise
@@ -2817,6 +2895,247 @@ def run_seviri(device, card_line, archives):
         + f"; objects {objects}; kernel launches {launches} by shape {by_shape}; phase "
         f"{time.perf_counter() - t0:.1f} s")
     return launches, by_shape
+
+
+# -- the configured detection ------------------------------------------------
+
+# the PipelineConfig the phase writes as JSON and reads back: any registered
+# flow model, Lanczos smoothing and core subsegmentation
+CONFIGURED = {"flow_model": "DIS", "interp_method": "lanczos", "subsegment_shrink": 0.1}
+FLOW_MODEL_NAMES = ("DIS", "DualTVL1", "DeepFlow", "PCA", "SimpleFlow", "SparseToDense")
+# make_multistorm_scene's frames whose last 3 pairs the card and the CPU flow
+# (its first frame holds no storm yet)
+MODEL_CHECK = (5, 128, 192)
+SUBSEGMENT_BT = 235.0  # K: the subsegmented mask of the card-against-CPU check
+# make_multistorm_scene's scene of the configured CLI's card-against-CPU
+# check: the smallest tried where the configuration finds anvil markers
+# and cores (9x64x96's floods took 27 s on the card, 9x32x48 finds no core)
+CONFIGURED_SMALL = (9, 48, 64)
+
+
+def cpu_model_flows(p8, n8):
+    """Each ported model's flows of the quantised pairs (numpy) on the CPU:
+    the CPU side of phase 14 (a), run in a worker process (``cpu_legs``)."""
+    torch.set_num_threads(CPU_LEG_THREADS)
+    p8, n8 = torch.from_numpy(p8), torch.from_numpy(n8)
+    return {name: select_of_model(name)(p8, n8).numpy() for name in FLOW_MODEL_NAMES}
+
+
+def cpu_subsegment(mask):
+    """``subsegment_labels`` of ``mask`` on the CPU (worker process)."""
+    from tobac_flow_tpu_torch.segment.subsegment import subsegment_labels
+
+    torch.set_num_threads(CPU_LEG_THREADS)
+    return subsegment_labels(mask, CONFIGURED["subsegment_shrink"], device="cpu").numpy()
+
+
+def check_configured_small(device, card_line, legs):
+    """Phase 14 (a), card against CPU, the CPU sides in ``legs``' worker
+    process: each model's flows of MODEL_CHECK's last 3 pairs (the Farneback
+    gate inside the storms); ``subsegment_labels`` of its cold cores
+    (identical); and ``PipelineConfig(**CONFIGURED)`` written as JSON,
+    read back and run through ``cli.common.run_detection`` at
+    CONFIGURED_SMALL given the card's flows of that configuration (identical datasets but
+    the float means and stds, held to rtol 1e-5; anvil markers and anvils
+    found).  Returns the configuration read back, and a function that
+    waits for the CPU's sides and checks them."""
+    from tobac_flow_tpu_torch.config import PipelineConfig
+    from tobac_flow_tpu_torch.segment.subsegment import subsegment_labels
+
+    t0 = time.perf_counter()
+    bt = make_multistorm_scene(*MODEL_CHECK)[0][1:]
+    frames = torch.from_numpy(bt)
+    p8, n8 = _normalise_pair(frames[:-1], frames[1:])
+    cpu_flows = legs.submit(cpu_model_flows, p8.numpy(), n8.numpy())
+    cores = bt[1:3] < SUBSEGMENT_BT  # two frames of well-grown cells
+    cpu_sub = legs.submit(cpu_subsegment, cores)
+    card_flows, seconds = {}, {}
+    for name in FLOW_MODEL_NAMES:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = select_of_model(name).to(device)(p8.to(device), n8.to(device))
+        card_flows[name] = out.cpu().numpy()
+        seconds[name] = time.perf_counter() - t1
+    card_sub = subsegment_labels(cores, CONFIGURED["subsegment_shrink"], device=device)
+    if card_sub.device.type != device.type:
+        raise AssertionError(f"subsegment_labels ran on {card_sub.device}")
+    card_sub = card_sub.cpu().numpy()
+
+    path = ws_sweeps._BUILD_DIR / "configured.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    PipelineConfig(**CONFIGURED).to_json(path)
+    config = PipelineConfig.from_json(path)
+    if config != PipelineConfig(**CONFIGURED):
+        raise AssertionError(f"PipelineConfig: {path} read back as {config}")
+    bt_s, wvd_s, swd_s = make_multistorm_scene(*CONFIGURED_SMALL)
+    wvd_s[3:6, 14:20, 26:32] = np.nan  # a patch of missing data
+    times = chain_times(CONFIGURED_SMALL[0])
+    flow = create_flow(bt_s, model=config.flow_model, vr_steps=config.vr_steps,
+                       smoothing_passes=config.smoothing_passes,
+                       interp_method=config.interp_method, max_value=config.flow_max_value)
+    if flow.device.type != device.type:
+        raise AssertionError(f"create_flow ran on {flow.device}, not on the card")
+    cpu_run = legs.submit(cpu_detection, *chain_inputs(bt_s, wvd_s, swd_s, times),
+                          flow.forward_flow.cpu().numpy(), flow.backward_flow.cpu().numpy(),
+                          CONFIGURED)
+    fields, ds = chain_inputs(bt_s, wvd_s, swd_s, times)
+    opts = config.detection_options()
+    opts.save_anvil_markers = True
+    opts.flow_factory = lambda _: flow
+    card_out = cli.run_detection(*fields, ds, opts=opts)
+    log(f"configured (a): the card's sides in {time.perf_counter() - t0:.1f} s: each model on "
+        f"{MODEL_CHECK[0] - 2} pairs of {MODEL_CHECK[1:]} " + ", ".join(
+            f"{n} {s:.3f} s" for n, s in seconds.items())
+        + f"; {config} through cli.run_detection at {CONFIGURED_SMALL} [{card_line}]")
+
+    def finish():
+        storm = bt[:-1] < 260.0
+        worst = {}
+        for name, want in cpu_flows.result().items():
+            got = card_flows[name]
+            for i in range(got.shape[0]):
+                if not within(got[i], want[i], storm[i]):
+                    raise AssertionError(f"configured (a): {name} card vs CPU flow, pair {i}")
+            worst[name] = float(np.abs(got - want)[storm].max())
+        want_sub = cpu_sub.result()
+        if not np.array_equal(want_sub, card_sub) or want_sub.max() == 0:
+            raise AssertionError(f"configured (a): subsegment_labels card vs CPU "
+                                 f"({want_sub.max()} and {card_sub.max()} labels)")
+        cpu_out = cpu_run.result()
+        counts = {name: int(cpu_out[name].values.max()) for name in CHAIN_LABELS}
+        if counts["anvil_marker_label"] == 0 or counts["thick_anvil_label"] == 0:
+            raise AssertionError(f"configured (a): no anvil markers or anvils: {counts}")
+        dataset_worst = compare_datasets(cpu_out, card_out)
+        log(f"configured (a) checks: each model's card flows within the Farneback gate of the "
+            f"CPU's inside the storms (max |card - CPU| " + ", ".join(
+                f"{n} {v:.3g}" for n, v in worst.items())
+            + f" px); subsegment_labels identical ({int(want_sub.max())} subsegments of "
+            f"{int(cores.sum())} core pixels); cli.run_detection under the JSON configuration "
+            f"gives the CPU's dataset given the same flows (float32 means and stds within "
+            f"{dataset_worst:.3g}, the rest identical); objects {counts}")
+
+    return config, finish
+
+
+def run_configured(device, card_line, goes_fields, config):
+    """Phase 14 (b): the configured chain's first three stages at the GOES
+    job's frame on the card, as the chain calls them (``create_flow`` with
+    ``config``'s model and smoothing, ``detect_cores`` and
+    ``get_anvil_markers`` with its ``subsegment_shrink``), with the
+    kernel's counts reset just before and read just after; then
+    ``create_flow`` with each other model.  Each stage's seconds, peak over
+    its start against the budget at its start, groups of pairs and
+    objects are logged.  Checks: every flow finite off the gap frame and
+    within ±``flow_max_value``; cores and anvil markers found; every peak
+    within its budget; the anvil marker mask's subsegmentation in forced
+    time chunks equal to the whole volume's (outside the counted run).
+    Returns (launches, launches by shape, seconds per
+    pair-direction by model)."""
+    from tobac_flow_tpu_torch.detect.fused import anvil_marker_mask
+    from tobac_flow_tpu_torch.segment.subsegment import subsegment_labels
+
+    opts = config.detection_options()
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bt, wvd, swd = (torch.from_numpy(np.asarray(f.values)).to(device) for f in goes_fields)
+    times = goes_fields[0].coords["t"]
+    t = bt.shape[0]
+    px = bt[0].numel()
+    gap = [i for i in range(t) if bool(torch.isnan(bt[i]).all())]
+    stats, budgets, groups = {}, {}, {}
+    kw = dict(overlap=opts.overlap, absolute_overlap=opts.absolute_overlap,
+              subsegment_shrink=opts.subsegment_shrink, min_length=opts.t_offset)
+
+    def run(name, fn, count=None):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # as run_deep_chain's stages
+        budgets[name] = port_device.memory_budget(device)
+        with port_device.stage(name, stats, device):
+            result = fn()
+        if count is not None:
+            stats[f"{name}_n"] = int(count(result))
+        return result
+
+    def flow_of(model):
+        step = port_device.group_size(t - 1, px, select_of_model(model).BYTES_PER_PAIR_PX,
+                                      device, None, 16 * t * px)
+        groups[model] = -(-(t - 1) // step)
+        return create_flow(bt, model=model, vr_steps=opts.vr_steps,
+                           smoothing_passes=opts.smoothing_passes,
+                           interp_method=opts.interp_method, max_value=config.flow_max_value,
+                           device=device)
+
+    def check_flow(flow, model):
+        for f in flow.flow:
+            off_gap = torch.stack([f[i] for i in range(t) if i not in gap])
+            top = float(torch.nan_to_num(f, nan=0.0).abs().max())
+            if not bool(torch.isfinite(off_gap).all()) or top > config.flow_max_value:
+                raise AssertionError(f"configured: {model} flow not finite off the gap frame "
+                                     f"or over the clip ({top} px)")
+
+    reset_counts()
+    flow = run("flow", lambda: flow_of(config.flow_model))
+    cores = run("detect_cores", lambda: detect_cores(
+        flow, bt, wvd, swd, times, wvd_threshold=opts.wvd_threshold,
+        bt_threshold=opts.bt_threshold, use_wvd=opts.use_wvd, **kw), lambda r: r.max())
+    diff = wvd - swd
+    markers = run("anvil_markers", lambda: get_anvil_markers(
+        flow, diff, threshold=opts.thick_upper, **kw), lambda r: r.max())
+    torch.cuda.synchronize()
+    launches, by_shape = read_counts()
+    del cores, markers
+    # the subsegmentation of the anvil marker mask at full width in forced
+    # 4-frame time chunks against the whole volume (9 frames run whole)
+    mask = anvil_marker_mask(diff, opts.thick_upper)
+    del diff
+    whole = subsegment_labels(mask, config.subsegment_shrink, 10, device=device)
+    sub = {}
+    with port_device.stage("subsegment_chunked", sub, device):
+        chunked = subsegment_labels(mask, config.subsegment_shrink, 10, device=device,
+                                    budget_bytes=port_device.frames_budget(CHUNK_CAP))
+    if sub.get("subsegment_chunked_chunks", 1) < 2 or not torch.equal(whole, chunked):
+        raise AssertionError(f"configured: the subsegmentation in "
+                             f"{sub.get('subsegment_chunked_chunks', 1)} time chunks differs "
+                             f"from the whole volume's")
+    n_sub = int(whole.max())
+    del mask, whole, chunked
+    check_flow(flow, config.flow_model)
+    del flow
+    names = ["flow", "detect_cores", "anvil_markers"]
+    if stats["detect_cores_n"] == 0 or stats["anvil_markers_n"] == 0 or launches == 0:
+        raise AssertionError(f"configured: objects {stats['detect_cores_n']}, "
+                             f"{stats['anvil_markers_n']}; {launches} kernel launches")
+    per_pair = {config.flow_model: stats["flow_s"] / (2 * (t - 1))}
+    for model in FLOW_MODEL_NAMES:
+        if model == config.flow_model:
+            continue
+        name = f"flow_{model}"
+        flow = run(name, lambda: flow_of(model))
+        check_flow(flow, model)
+        del flow
+        per_pair[model] = stats[f"{name}_s"] / (2 * (t - 1))
+        names.append(name)
+    over = [n for n in names
+            if stats[f"{n}_peak_bytes"] - stats[f"{n}_start_bytes"] > budgets[n]]
+    if over:
+        raise AssertionError(f"configured: peaks over budget {over}")
+    del bt, wvd, swd
+    log(f"configured (b) {tuple(goes_fields[0].shape)}, NaN frames {gap}, {config.flow_model} "
+        f"with {config.interp_method} smoothing, subsegment_shrink "
+        f"{config.subsegment_shrink} [{card_line}]: " + "; ".join(
+            f"{n} {stats[n + '_s']:.3f} s, peak {stats[n + '_peak_bytes'] / 2**30:.3f} GiB "
+            f"({(stats[n + '_peak_bytes'] - stats[n + '_start_bytes']) / 2**30:.3f} over its "
+            f"start, budget {budgets[n] / 2**30:.3f})"
+            + (f", objects {stats[n + '_n']}" if n + "_n" in stats else "") for n in names)
+        + "; groups of pairs " + ", ".join(f"{m} {g}" for m, g in groups.items())
+        + "; seconds per pair-direction " + ", ".join(
+            f"{m} {s:.4f}" for m, s in per_pair.items())
+        + f"; kernel launches {launches} {by_shape}; the markers' subsegmentation in "
+        f"{sub['subsegment_chunked_chunks']} forced chunks = whole ({n_sub} subsegments); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return launches, by_shape, per_pair
 
 
 def check_and_time_new_shapes(by_shape, per_shape, device, card_line, before_plain=None):
@@ -2983,9 +3302,12 @@ def main():
         archives = legs.submit(seviri_archives, str(seviri_dir))
         deep_at = deep_shape(device)[0]
         deep_scene_made = (deep_at, prefetched(deep_inputs, deep_at))
-        check_chunked_small(device, card_line)
+        finish_chunked_small = check_chunked_small(device, card_line, legs)
+        config, finish_configured = check_configured_small(device, card_line, legs)
         small[3]()
         finish_goes_small()
+        finish_chunked_small()
+        finish_configured()
         t0 = time.perf_counter()
         seviri_paths, seviri_written = archives.result()
         seviri_archived = (seviri_paths, seviri_written, time.perf_counter() - t0)
@@ -3000,6 +3322,7 @@ def main():
     del goes_scene
     chain_scene = prefetched(deep_scene, deep_chain_most_frames(device), *JOB_FRAME)
     check_chunked_goes(goes_record, device, card_line)
+    configured_fields = goes_record["fields"]  # phase 14 (b) reuses the GOES scene
     del goes_record
     chain_scene()
 
@@ -3024,6 +3347,13 @@ def main():
     torch.cuda.empty_cache()
     seviri_launches, seviri_by_shape = run_seviri(device, card_line, seviri_archived)
     shutil.rmtree(seviri_dir, ignore_errors=True)
+    # the configured detection at the GOES job's frame: any flow model,
+    # Lanczos smoothing and core subsegmentation
+    gc.collect()
+    torch.cuda.empty_cache()
+    configured_launches, configured_by_shape, _ = run_configured(
+        device, card_line, configured_fields, config)
+    del configured_fields
     # the kernel at the new shapes checked and timed in CUDA graphs while the
     # CPU sides of the statistics' and validation's cut checks run in
     # threads; then those checks ((c) first, as the statistics' forced
@@ -3037,12 +3367,14 @@ def main():
         finish_statistics()
 
     worst = max(worst, check_and_time_new_shapes(
-        {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape, **seviri_by_shape},
+        {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape, **seviri_by_shape,
+         **configured_by_shape},
         per_shape, device, card_line, finish_checks))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape,
              "statistics": stats_by_shape, "validation": validation_by_shape,
-             "dcc_detect_seviri_nat": seviri_by_shape}
+             "dcc_detect_seviri_nat": seviri_by_shape,
+             "run_detection_configured": configured_by_shape}
 
     for key, row in per_shape.items():
         counts = [c.get(key, 0) for c in paths.values()]
@@ -3062,7 +3394,8 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + goes_launches + deep_launches + seviri_launches,
+        "launches": launches + goes_launches + deep_launches + seviri_launches
+        + configured_launches,
         "max_abs_err": worst,
         "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
         "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
@@ -3071,7 +3404,9 @@ def main():
         "per": "one run of each main path (the bench slice, the detection of the "
                "CONUS-shaped GOES scene, the deep time-chunked slice, the linking of three "
                "windows cut from the deep chain, their statistics and their validation, which "
-               "flood nothing, and the SEVIRI native CLI's detection of its crop): "
+               "flood nothing, the SEVIRI native CLI's detection of its crop, and the "
+               "configured chain's flow, cores and anvil markers at the GOES job's frame, "
+               "whose subsegmentation floods in plane): "
                "the sum over its "
                "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},

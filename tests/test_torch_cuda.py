@@ -491,3 +491,103 @@ def test_validate_cores_on_card_equals_cpu(cuda, budget):
     assert s0 == s1 and a0 == a1 and 0 < s0[0][0] <= 1
     assert np.array_equal(c0, c1) and np.array_equal(t0, t1)
     assert all(torch.equal(x.view(torch.int64), y.view(torch.int64)) for x, y in zip(g0, g1))
+
+
+def _model_pairs():
+    """Three storm-bearing frame pairs of the multistorm scene, quantised as
+    the flow path quantises them (on the CPU)."""
+    from tobac_flow_tpu_torch.pipeline import _normalise_pair
+
+    bt = make_multistorm_scene(5, 96, 128)[0][1:]
+    frames = torch.from_numpy(bt)
+    p8, n8 = _normalise_pair(frames[:-1], frames[1:])
+    return bt, p8, n8
+
+
+@pytest.mark.parametrize("name", ["DIS", "DualTVL1", "DeepFlow", "PCA", "SimpleFlow",
+                                  "SparseToDense"])
+def test_flow_model_on_card_equals_cpu(cuda, name):
+    """Each model's flows of three pairs in one batch on the card within the
+    CPU tests' Farneback gate of the CPU's, inside the storms."""
+    from tobac_flow_tpu_torch.models import select_of_model
+
+    bt, p8, n8 = _model_pairs()
+    want = select_of_model(name)(p8, n8).numpy()
+    got = select_of_model(name).to(cuda)(p8.to(cuda), n8.to(cuda)).cpu().numpy()
+    storm = bt[:-1] < 260.0
+    for i in range(got.shape[0]):
+        diff = np.abs(got[i] - want[i])[storm[i]]
+        assert np.percentile(diff, 99) <= 0.01 and diff.max() <= 0.1, (i, diff.max())
+        assert (np.round(got[i]) == np.round(want[i]))[storm[i]].mean() >= 0.999
+
+
+def test_pca_holds_tf32_off(cuda, monkeypatch):
+    """PCA's products run with TF32 off even where the caller allows it
+    (restored after): inside ``full_precision_matmul`` a float32 product
+    on the card matches float64 to float32 rounding (TF32's 10-bit
+    mantissa would miss it by about 1e-3), and the model's flows on the
+    card are the CPU's within the Farneback gate."""
+    from tobac_flow_tpu_torch.models import pcaflow
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    a = torch.rand((4096, 36), generator=gen)
+    b = torch.rand((36, 2), generator=gen)
+    exact = a.double() @ b.double()
+    with pcaflow.full_precision_matmul():
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        got = (a.to(cuda) @ b.to(cuda)).cpu().double()
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    assert float(((got - exact).abs() / exact.abs()).max()) < 1e-5
+    seen = []
+    real = torch.linalg.solve
+
+    def spy(x, y):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(x, y)
+
+    monkeypatch.setattr(torch.linalg, "solve", spy)
+    bt, p8, n8 = _model_pairs()
+    got = pcaflow.PCAFlow().to(cuda)(p8.to(cuda), n8.to(cuda)).cpu().numpy()
+    assert seen == [False] and torch.backends.cuda.matmul.allow_tf32 is True
+    want = pcaflow.PCAFlow()(p8, n8).numpy()
+    storm = bt[:-1] < 260.0
+    for i in range(got.shape[0]):
+        diff = np.abs(got[i] - want[i])[storm[i]]
+        assert np.percentile(diff, 99) <= 0.01 and diff.max() <= 0.1, (i, diff.max())
+
+
+@pytest.mark.parametrize("method", ["linear", "z_score", "log", "inverse_log"])
+def test_normalise_pair_on_card_equals_cpu(cuda, method):
+    from tobac_flow_tpu_torch.pipeline import _normalise_pair
+
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(250, 15, (3, 150, 250)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(240, 25, (3, 150, 250)).astype(np.float32))
+    a[0, 3:9, 5:20] = float("nan")
+    want = _normalise_pair(a, b, method)
+    got = _normalise_pair(a.to(cuda), b.to(cuda), method)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
+
+
+def test_lanczos_smoothing_and_subsegmentation_on_card_equal_cpu(cuda):
+    from tobac_flow_tpu_torch import device as port_device
+    from tobac_flow_tpu_torch.core.flow import smooth_flow_step
+    from tobac_flow_tpu_torch.segment.subsegment import subsegment_labels
+
+    rng = np.random.default_rng(1)
+    fwd = torch.from_numpy(rng.normal(0, 3, (2, 64, 96, 2)).astype(np.float32))
+    bwd = -fwd + torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 2)).astype(np.float32))
+    want = smooth_flow_step(fwd, bwd, method="lanczos")
+    got = smooth_flow_step(fwd.to(cuda), bwd.to(cuda), method="lanczos")
+    for w, g in zip(want, got):
+        assert torch.equal(torch.isnan(w), torch.isnan(g.cpu()))
+        assert torch.equal(torch.nan_to_num(w), torch.nan_to_num(g.cpu()))
+    mask = make_multistorm_scene(6, 96, 128)[0] < 235.0
+    want = subsegment_labels(mask, 0.1, device="cpu")
+    got = subsegment_labels(mask, 0.1, device=cuda)
+    assert want.max() > 1 and torch.equal(want, got.cpu())
+    chunked = subsegment_labels(mask, 0.1, device=cuda,
+                                budget_bytes=port_device.frames_budget(4))
+    assert torch.equal(want, chunked.cpu())

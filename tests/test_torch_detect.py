@@ -20,8 +20,13 @@ markers, thick anvils, their relabelling and thin anvils.
   amplifies rounding-level differences into pixels; the reference's
   two functions disagree there by up to 10 px (measured), and so does the port.
 
-The reference's outputs come from one module-scoped fixture.
+The reference's outputs come from one module-scoped fixture, which reads
+them as ``tools/record_torch_refs.py`` recorded them
+(``tests/data/detect_chain.npz``): the reference's chain compiles its
+watershed, about 5 minutes of the suite's time when run live.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,62 +38,25 @@ import torch  # noqa: E402
 # one intra-op thread: the suite runs several test processes side by side
 torch.set_num_threads(1)
 
-from tobac_flow_tpu import pipeline as jax_pipeline  # noqa: E402
-from tobac_flow_tpu.core.flow import create_flow as jax_create_flow  # noqa: E402
-from tobac_flow_tpu.detect import (  # noqa: E402
-    detect_anvils, detect_cores, get_anvil_markers, relabel_anvils,
-)
 from tobac_flow_tpu.detect import fused as jfused  # noqa: E402
 from tobac_flow_tpu_torch.core.flow import Flow  # noqa: E402
 from tobac_flow_tpu_torch.detect import fused  # noqa: E402
 from tobac_flow_tpu_torch.detect.chain import DetectionOptions, run_detection  # noqa: E402
-from tools.parity_detect import _da, make_multistorm_scene, object_iou  # noqa: E402
+from tools.parity_detect import object_iou  # noqa: E402
+from tools.record_torch_refs import CHAIN_SHAPE as SHAPE  # noqa: E402
+from tools.record_torch_refs import CHAIN_STAGES as STAGES  # noqa: E402
+from tools.record_torch_refs import chain_scene as _scene  # noqa: E402
 
-SHAPE = (9, 64, 96)
-STAGES = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
-
-
-def _scene():
-    bt, wvd, swd = make_multistorm_scene(*SHAPE)
-    wvd[3:6, 20:26, 40:46] = np.nan  # missing data at a cell's edge
-    times = np.datetime64("2020-06-01T00:00", "ns") + np.arange(SHAPE[0]) * np.timedelta64(300, "s")
-    return bt, wvd, swd, times
-
-
-def _jax_chain(flow, bt, wvd, swd):
-    """The stages of ``run_detection`` with ``DetectionOptions()``."""
-    o = DetectionOptions()
-    bt, wvd, swd = _da(bt, "bt"), _da(wvd, "wvd"), _da(swd, "swd")
-    cores = detect_cores(flow, bt, wvd, swd, wvd_threshold=o.wvd_threshold,
-                         bt_threshold=o.bt_threshold, overlap=o.overlap,
-                         absolute_overlap=o.absolute_overlap, min_length=o.t_offset,
-                         use_wvd=o.use_wvd)
-    markers = get_anvil_markers(flow, wvd - swd, threshold=o.thick_upper, overlap=o.overlap,
-                                absolute_overlap=o.absolute_overlap, min_length=o.t_offset)
-    thick = detect_anvils(flow, wvd - swd, markers=markers, upper_threshold=o.thick_upper,
-                          lower_threshold=o.thick_lower, erode_distance=o.erode_distance,
-                          min_length=o.t_offset)
-    thick = relabel_anvils(flow, thick, markers=markers, overlap=o.overlap,
-                           absolute_overlap=o.absolute_overlap, min_length=o.t_offset)
-    thin = detect_anvils(flow, wvd + swd, markers=thick, upper_threshold=o.thin_upper,
-                         lower_threshold=o.thin_lower, erode_distance=o.erode_distance,
-                         min_length=o.t_offset)
-    return {k: np.asarray(v.values) for k, v in zip(STAGES, (cores, markers, thick, thin))}
+RECORD = Path(__file__).resolve().parent / "data" / "detect_chain.npz"
 
 
 @pytest.fixture(scope="module")
 def ref():
-    bt, wvd, swd, times = _scene()
-    o = DetectionOptions()
-    flow = jax_create_flow(bt, vr_steps=o.vr_steps, smoothing_passes=o.smoothing_passes,
-                           interp_method=o.interp_method)
-    out = _jax_chain(flow, bt, wvd, swd)
-    out.update(fwd=np.asarray(flow.forward_flow), bwd=np.asarray(flow.backward_flow))
-    again = jax_pipeline.device_flow(jnp.asarray(bt), vr_steps=o.vr_steps,
-                                     smoothing_passes=o.smoothing_passes,
-                                     interp_method=o.interp_method)
-    out.update(fwd_again=np.asarray(again[0]), bwd_again=np.asarray(again[1]))
-    return out
+    """The reference's chain: each stage's labels, its ``create_flow``
+    flows (``fwd``, ``bwd``) and the same flows from
+    ``pipeline.device_flow`` (``fwd_again``, ``bwd_again``), as
+    ``tools/record_torch_refs.record_detect_chain`` recorded them."""
+    return dict(np.load(RECORD))
 
 
 @pytest.fixture(scope="module")

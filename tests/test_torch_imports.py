@@ -110,7 +110,10 @@ def test_scan_sees_the_package():
             "cli/link_dcc_files.py", "cli/combine_dccs.py", "cli/linking_parallel.py",
             "cli/relabel_linked_files.py", "utils/filters.py", "schema/postprocess.py",
             "cli/relabel_postprocess.py", "cli/postprocess_dcc.py", "cli/quick_fix.py",
-            "cli/dcc_statistics.py"} <= names
+            "cli/dcc_statistics.py", "config.py", "utils/normalisation.py", "ops/warp.py",
+            "models/dis.py", "models/tvl1.py", "models/deepflow.py", "models/pcaflow.py",
+            "models/simpleflow.py", "models/sparse_to_dense.py",
+            "segment/subsegment.py"} <= names
     # the time-chunked flood and the grouped stages live in these modules
     assert "_watershed_time_chunked" in (PORT / "ops" / "watershed.py").read_text()
     assert "group_size" in (PORT / "pipeline.py").read_text()
@@ -118,3 +121,32 @@ def test_scan_sees_the_package():
     assert "def create_new_goes_ds" in (PORT / "schema" / "dataset.py").read_text()
     assert "def get_bulk_stats" in (PORT / "schema" / "dataset.py").read_text()
     assert "tobac_flow_tpu" in set(_imported_roots(ast.parse("import tobac_flow_tpu.ops")))
+
+
+CONFIGURED_PATH = (
+    "tobac_flow_tpu_torch.config", "tobac_flow_tpu_torch.models.dis",
+    "tobac_flow_tpu_torch.models.tvl1", "tobac_flow_tpu_torch.models.deepflow",
+    "tobac_flow_tpu_torch.models.pcaflow", "tobac_flow_tpu_torch.models.simpleflow",
+    "tobac_flow_tpu_torch.models.sparse_to_dense", "tobac_flow_tpu_torch.segment.subsegment",
+)
+
+
+@pytest.fixture(scope="module")
+def imported_without_jax():
+    """Each module of the configured flow path imported in one fresh
+    interpreter where importing JAX fails: the modules that imported."""
+    code = ("import importlib, sys; sys.modules['jax'] = None; "
+            "sys.modules['tobac_flow_tpu'] = None\n"
+            f"for name in {CONFIGURED_PATH!r}:\n"
+            "    try:\n        importlib.import_module(name)\n        print(name)\n"
+            "    except ImportError as err:\n        print(name, 'failed:', err, file=sys.stderr)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent, check=True,
+                         capture_output=True, text=True, timeout=120)
+    return set(out.stdout.split()), out.stderr
+
+
+@pytest.mark.parametrize("module", CONFIGURED_PATH)
+def test_new_modules_import_without_jax(module, imported_without_jax):
+    """Each module of the configured flow path imports where JAX does not."""
+    imported, errors = imported_without_jax
+    assert module in imported, errors

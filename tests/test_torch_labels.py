@@ -96,8 +96,11 @@ def test_flow_label_and_link_overlap(storm):
     ref_link = jflow.link_overlap(steps, overlap=0.5, absolute_overlap=4)
     out_link = flow.link_overlap(torch.from_numpy(steps), overlap=0.5, absolute_overlap=4)
     assert np.array_equal(np.asarray(ref_link), out_link.numpy())
-    with pytest.raises(NotImplementedError, match="subsegment"):
-        flow.label(storm["mask"], subsegment_shrink=0.5)
+    # subsegmented labels lie inside the mask (held to the reference's in
+    # test_torch_subsegment.py; a region too small for a marker stays 0)
+    sub = flow.label(storm["mask"], subsegment_shrink=0.5)
+    assert sub.dtype == torch.int32 and int(sub.max()) > 0
+    assert not sub.numpy()[np.asarray(storm["mask"]) == 0].any()
 
 
 def _labels(seed):

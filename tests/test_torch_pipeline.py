@@ -10,46 +10,48 @@
   the storm mask.
 - The whole slice: foreground IoU ≥ 0.99, and ≥ 0.99 same-label agreement
   where both label, against JAX ``fused_flow_watershed``.
+
+The reference's outputs are read as ``tools/record_torch_refs.py``
+recorded them (``tests/data/fused_scene.npz``, with a digest of the scene
+it was made from): its fields stage and watershed compile, about a
+minute of the suite's time when run live.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
-
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
-import torch  # noqa: E402
+import torch
 
 # one intra-op thread: the suite runs several test processes side by side, and
 # torch's default thread pool per process oversubscribes the cores
 torch.set_num_threads(1)
 
-import bench  # noqa: E402
-from tobac_flow_tpu import pipeline as jp  # noqa: E402
 from tobac_flow_tpu_torch import pipeline as pp  # noqa: E402
+from tools.record_torch_refs import FUSED_SHAPE, fused_scene, scene_digest  # noqa: E402
 
-SHAPE = (8, 160, 224)
+SHAPE = FUSED_SHAPE
+RECORD = Path(__file__).resolve().parent / "data" / "fused_scene.npz"
 
 
 @pytest.fixture(scope="module")
 def scene():
-    bt = bench.make_scene(*SHAPE)
-    markers, n = bench.make_markers(bt)
-    jf = jp.fused_flow_watershed(jnp.asarray(bt), 5.0, markers=markers)
-    fwd, bwd, growth, field, edges = (np.array(a) for a in jp._fields_stage(jnp.asarray(bt), 5.0))
-    return {
-        "bt": bt, "markers": markers, "n": n, "fwd": fwd, "bwd": bwd,
-        "growth": growth, "field": field, "edges": edges,
-        "labels": np.array(jf[3]),
-    }
+    """The scene, its markers, and the reference's fields stage and fused
+    labels, as ``tools/record_torch_refs.record_fused_scene`` recorded
+    them."""
+    bt, markers, n = fused_scene()
+    rec = dict(np.load(RECORD))
+    assert str(rec.pop("digest")) == scene_digest(bt, markers), "stale record"
+    return {"bt": bt, "markers": markers, "n": n, **rec}
 
 
 def test_fields_stage_teacher_forced(scene):
     fwd, bwd = (torch.from_numpy(scene[k]) for k in ("fwd", "bwd"))
     radius = pp.adaptive_band_radius(fwd, bwd)
-    assert radius == jp.adaptive_band_radius(jnp.asarray(scene["fwd"]), jnp.asarray(scene["bwd"]))
-    ref = [np.asarray(a) for a in jp._detect_fields_stage(
-        jnp.asarray(scene["bt"]), jnp.asarray(scene["fwd"]), jnp.asarray(scene["bwd"]), 5.0, radius
-    )]
+    assert radius == int(scene["radius"])
+    # the reference's fields stage given its own flows (recorded once: it
+    # gives the stage's fields again)
+    ref = [scene[k] for k in ("growth", "field", "edges")]
     growth, field, edges = (a.numpy() for a in pp._detect_fields_stage(
         torch.from_numpy(scene["bt"]), fwd, bwd, 5.0, radius
     ))

@@ -13,7 +13,12 @@ imports neither it nor JAX.  Public entry points:
 - :func:`tobac_flow_tpu_torch.detect.chain.run_detection` (the label volumes)
 - :func:`tobac_flow_tpu_torch.cli.common.run_detection` (the detection
   dataset) and ``python -m tobac_flow_tpu_torch.cli.dcc_detect_synthetic``
-- :class:`tobac_flow_tpu_torch.models.farneback.FarnebackFlow`
+- :class:`tobac_flow_tpu_torch.models.farneback.FarnebackFlow` and the
+  other flow models, by name through
+  :func:`tobac_flow_tpu_torch.models.select_of_model`
+- :class:`tobac_flow_tpu_torch.config.PipelineConfig` (its
+  ``detection_options()`` configures the detection's flow model,
+  smoothing and subsegmentation)
 """
 
 from tobac_flow_tpu_torch.core.flow import Flow, create_flow

@@ -125,6 +125,8 @@ def run_detection(bt, wvd, swd, times, opts: DetectionOptions | None = None,
         parked = []
         if name in _READS:
             reads, per_px = _READS[name]
+            if opts.subsegment_shrink and name in ("detect_cores", "anvil_markers"):
+                per_px = max(per_px, _dev.SUBSEGMENT_BYTES_PER_PX)
             parked = _dev.park(vols, reads, dev, per_px * frame_px)
         with timed_stage(name, stats, dev):
             result = fn()

@@ -56,6 +56,10 @@ LABEL_STATS_BYTES_PER_PX = 20  # get_label_stats: 19.10
 # margin, per pixel of a time chunk with its halos (3 frames each side),
 # measured at 6 and 24 frames
 VALIDATE_BYTES_PER_PX = 37  # validate.validation marker distance: 28.41 whole, 36.25 chunked
+# the core subsegmentation (segment.subsegment.subsegment_labels) of the
+# anvil marker mask: the labelling, each frame's distance transform, the
+# peaks and the in-plane watershed, measured at 6 and 12 frames
+SUBSEGMENT_BYTES_PER_PX = 124  # 123.01 whole, 123.14 chunked
 MIN_CHUNK_FRAMES = 4  # the smallest time chunk, as the reference's
 
 # the high-water mark of each CUDA device before ``stage``'s last reset of

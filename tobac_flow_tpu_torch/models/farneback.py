@@ -150,7 +150,10 @@ def _box_blur(img, winsize):
     def box1d(a, axis):
         n = a.shape[axis]
         idx = torch.arange(-r, n + r, device=a.device).clamp(0, n - 1)
-        c = torch.cumsum(a.index_select(axis, idx), dim=axis)
+        # float64 running sums, each rounded to float32 (the CPU's float32
+        # cumsum; the card's float32 scan would round its partial sums)
+        c = torch.cumsum(a.index_select(axis, idx), dim=axis, dtype=torch.float64)
+        c = c.to(a.dtype)
         zero_shape = list(c.shape)
         zero_shape[axis] = 1
         c = torch.cat([c.new_zeros(zero_shape), c], dim=axis)
@@ -277,6 +280,10 @@ class FarnebackFlow(nn.Module):
     Buffers: the applicability kernels ``g``, ``xg``, ``xxg`` and ``inv_g``
     (G⁻¹), in float64 exactly as the reference derives them; the arithmetic
     uses their float32 roundings, as the reference does."""
+
+    # the flow stage's bytes per pair-pixel (see pipeline.pair_flows): 880.33
+    # in one group at 6 and 12 x 1500 x 2500 and 24 x 1024 x 1536
+    BYTES_PER_PAIR_PX = 881
 
     def __init__(self, params: FarnebackParams | None = None):
         super().__init__()

@@ -6,7 +6,9 @@ Semantics follow scipy as the reference does: the structure is anchored
 at its centre, ``border_value`` is what lies outside the array,
 ``iterations`` repeats the base operation.  Every op runs on its input's
 device over the whole volume.  ``distance_transform_edt`` is the exact
-Euclidean distance transform that validation uses.
+Euclidean distance transform that validation and subsegmentation use;
+``grey_dilation`` and ``peak_local_max_mask`` work frame by frame over the
+last two axes of a stack.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ import torch
 
 from tobac_flow_tpu_torch.ops.warp import fma, shift_axis
 
-__all__ = ["binary_erosion", "binary_dilation", "binary_opening", "distance_transform_edt"]
+__all__ = [
+    "binary_erosion", "binary_dilation", "binary_opening", "distance_transform_edt",
+    "grey_dilation", "peak_local_max_mask",
+]
 
 _FLOOD_CHECK = 8  # flood iterations between convergence checks
 
@@ -128,6 +133,36 @@ def _grey_morph(data, offsets, mode):
         else:
             out = torch.maximum(out, _shift_nd(data, tuple(-x for x in off), fill))
     return out
+
+
+def grey_dilation(data, size):
+    """Moving maximum of float32 ``data`` (..., H, W) over a ``size``
+    (h, w) window about each pixel of each frame, -inf outside the frame:
+    the window's rows, then its columns (a maximum is exact in any
+    order)."""
+    data = torch.as_tensor(data).to(torch.float32)
+    lead = (0,) * (data.dim() - 2)
+    hy, hx = size
+    rows = tuple(lead + (dy, 0) for dy in range(-(hy // 2), hy - hy // 2))
+    cols = tuple(lead + (0, dx) for dx in range(-(hx // 2), hx - hx // 2))
+    return _grey_morph(_grey_morph(data, rows, "max"), cols, "max")
+
+
+def peak_local_max_mask(frames, min_distance=10, threshold_abs=0.0):
+    """Dense local-maxima mask of each frame of ``frames`` (..., H, W),
+    cast to float32 first: pixels equal to the maximum over their
+    (2d + 1)² window and above ``threshold_abs``, the ``d``-pixel border
+    ring excluded (skimage ``peak_local_max``'s filter stage; a plateau
+    keeps all its pixels)."""
+    frames = torch.as_tensor(frames).to(torch.float32)
+    d = int(min_distance)
+    peaks = (frames >= grey_dilation(frames, (2 * d + 1, 2 * d + 1))) & (
+        frames > float(np.float32(threshold_abs)))
+    if d > 0:
+        inner = torch.zeros_like(peaks)
+        inner[..., d:-d, d:-d] = peaks[..., d:-d, d:-d]
+        peaks = inner
+    return peaks
 
 
 def _gauss_kernel(sigma, truncate=4.0):

@@ -93,26 +93,43 @@ def _where4(cond, a, b):
     return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
 
 
+def _present_shifts(disps, radius):
+    """For each (displacement, live) pair, the shifts in -radius..radius
+    that some live pixel takes, ascending; one transfer to the host."""
+    n = 2 * radius + 1
+    counts = [
+        torch.bincount(torch.where(live & (d.abs() <= radius), d + radius, n).reshape(-1),
+                       minlength=n + 1)[:n]
+        for d, live in disps
+    ]
+    present = torch.stack(counts).cpu().numpy()
+    return [[int(s) - radius for s in np.flatnonzero(row)] for row in present]
+
+
 def _banded_scatter_min(cost, cost2, meta, disp_y, disp_x, radius):
     """Each source p pushes (cost, cost2, meta) to p + (disp_y, disp_x)(p);
     colliding pushes keep the lexicographic minimum.  A y pass over the
     shifts -R..R (in that order) keeps two lanes per intermediate cell: the
     best push, and the best push whose x displacement differs from it; an x
     pass then lands both lanes.  Pushes outside the band are dropped, never
-    clipped."""
+    clipped.  A shift that no claimed source (meta below META_MAX) takes
+    leaves both lanes as they are, and a lane's x shift that none of its
+    claimed entries takes leaves the output as it is, so both passes visit
+    only the shifts taken."""
     dev = cost.device
     inf = torch.tensor(math.inf, device=dev)
     big_m = torch.tensor(META_MAX, dtype=torch.int32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     dy = disp_y.to(torch.int32)
     dx = disp_x.to(torch.int32)
+    (y_shifts,) = _present_shifts([(dy, meta != META_MAX)], radius)
     lane0 = (
         torch.full_like(cost, math.inf), torch.full_like(cost, math.inf),
         torch.full_like(meta, META_MAX), torch.zeros_like(dx),
     )
     lane_a, lane_b = lane0, lane0
     fills = (math.inf, math.inf, META_MAX, 0)
-    for s in range(-radius, radius + 1):
+    for s in y_shifts:
         m = dy == s
         cand = (
             torch.where(m, cost, inf), torch.where(m, cost2, inf),
@@ -133,8 +150,12 @@ def _banded_scatter_min(cost, cost2, meta, disp_y, disp_x, radius):
         lane_a = top
 
     out = lane0[:3]
+    lanes = (lane_a, lane_b)
+    x_shifts = _present_shifts([(lane[3], lane[2] != META_MAX) for lane in lanes], radius)
     for s in range(-radius, radius + 1):
-        for lc, lc2, lm, ldx in (lane_a, lane_b):
+        for (lc, lc2, lm, ldx), taken in zip(lanes, x_shifts):
+            if s not in taken:
+                continue
             m = (ldx == s) & (lm != META_MAX)
             cc = shift_axis(torch.where(m, lc, inf), s, -1, math.inf)
             cc2 = shift_axis(torch.where(m, lc2, inf), s, -1, math.inf)

@@ -143,13 +143,19 @@ def flow_label(flow, mask, structure=DEFAULT_STRUCTURE, dtype=torch.int32,
                subsegment_shrink: float = 0.0, peak_min_distance: int = 10,
                budget_bytes=None):
     """Label 3d connected objects in the moving frame: per-frame components
-    of ``mask``, linked by warped overlap."""
-    if subsegment_shrink != 0:
-        raise NotImplementedError(
-            "subsegment_shrink > 0 needs segment/subsegment.py, which is not ported yet"
-        )
+    of ``mask`` (with ``subsegment_shrink`` != 0, its per-frame
+    morphological subsegments, ``segment.subsegment.subsegment_labels``),
+    linked by warped overlap."""
     mask = torch.as_tensor(mask)
-    flat = flat_label(mask, structure=structure, device=flow.device, budget_bytes=budget_bytes)
+    if subsegment_shrink == 0:
+        flat = flat_label(mask, structure=structure, device=flow.device,
+                          budget_bytes=budget_bytes)
+    else:
+        from tobac_flow_tpu_torch.segment.subsegment import subsegment_labels
+
+        flat = subsegment_labels(mask, shrink_factor=subsegment_shrink,
+                                 peak_min_distance=peak_min_distance, device=flow.device,
+                                 budget_bytes=budget_bytes)
     new_labels = link_labels_by_overlap(
         flow, flat, structure=structure, dtype=dtype, overlap=overlap,
         absolute_overlap=absolute_overlap, budget_bytes=budget_bytes,

@@ -1,0 +1,347 @@
+"""Record the JAX package's outputs that the port's CPU tests compare
+against, where the JAX side takes more than a few seconds to run live
+(its watershed compiles, its iterative flow models trace), into
+``tests/data/``.
+
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_torch_refs.py [NAME ...]
+
+NAME is any of ``flow_qc``, ``detect_chain``, ``flow_models``,
+``subsegment``, ``configured_chain`` and ``fused_scene`` (all by
+default); each writes
+``tests/data/NAME.npz``.  The scenes and settings are
+defined here and imported by the tests, so that a test reads exactly what
+was recorded for it.
+"""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+
+DATA = Path(__file__).resolve().parents[1] / "tests" / "data"
+
+# -- the detection chain (tests/test_torch_detect.py) ---------------------
+
+CHAIN_SHAPE = (9, 64, 96)
+CHAIN_STAGES = ("core_label", "anvil_marker_label", "thick_anvil_label", "thin_anvil_label")
+
+
+def chain_scene():
+    """``make_multistorm_scene(9, 64, 96)`` with a NaN patch in WVD at a
+    cell's edge, and its 5-minute time coordinate."""
+    from tools.parity_detect import make_multistorm_scene
+
+    bt, wvd, swd = make_multistorm_scene(*CHAIN_SHAPE)
+    wvd[3:6, 20:26, 40:46] = np.nan  # missing data at a cell's edge
+    times = (np.datetime64("2020-06-01T00:00", "ns")
+             + np.arange(CHAIN_SHAPE[0]) * np.timedelta64(300, "s"))
+    return bt, wvd, swd, times
+
+
+def jax_chain(flow, bt, wvd, swd, opts):
+    """The JAX package's stages of ``cli.common.run_detection`` with the
+    thresholds of ``opts`` (a ``DetectionOptions``): cores, anvil markers,
+    thick anvils, their relabelling and thin anvils."""
+    from tobac_flow_tpu.detect import (
+        detect_anvils, detect_cores, get_anvil_markers, relabel_anvils,
+    )
+    from tools.parity_detect import _da
+
+    o = opts
+    bt, wvd, swd = _da(bt, "bt"), _da(wvd, "wvd"), _da(swd, "swd")
+    cores = detect_cores(flow, bt, wvd, swd, wvd_threshold=o.wvd_threshold,
+                         bt_threshold=o.bt_threshold, overlap=o.overlap,
+                         absolute_overlap=o.absolute_overlap,
+                         subsegment_shrink=o.subsegment_shrink, min_length=o.t_offset,
+                         use_wvd=o.use_wvd)
+    markers = get_anvil_markers(flow, wvd - swd, threshold=o.thick_upper, overlap=o.overlap,
+                                absolute_overlap=o.absolute_overlap,
+                                subsegment_shrink=o.subsegment_shrink, min_length=o.t_offset)
+    thick = detect_anvils(flow, wvd - swd, markers=markers, upper_threshold=o.thick_upper,
+                          lower_threshold=o.thick_lower, erode_distance=o.erode_distance,
+                          min_length=o.t_offset)
+    thick = relabel_anvils(flow, thick, markers=markers, overlap=o.overlap,
+                           absolute_overlap=o.absolute_overlap, min_length=o.t_offset)
+    thin = detect_anvils(flow, wvd + swd, markers=thick, upper_threshold=o.thin_upper,
+                         lower_threshold=o.thin_lower, erode_distance=o.erode_distance,
+                         min_length=o.t_offset)
+    return {k: np.asarray(v.values) for k, v in zip(CHAIN_STAGES, (cores, markers, thick, thin))}
+
+
+def record_detect_chain():
+    """The CLI-default chain: its flows (``create_flow``), the same flows
+    from ``pipeline.device_flow``, and each stage's labels."""
+    import jax.numpy as jnp
+
+    from tobac_flow_tpu import pipeline as jax_pipeline
+    from tobac_flow_tpu.cli.common import DetectionOptions
+    from tobac_flow_tpu.core.flow import create_flow
+
+    bt, wvd, swd, _ = chain_scene()
+    o = DetectionOptions()
+    flow = create_flow(bt, vr_steps=o.vr_steps, smoothing_passes=o.smoothing_passes,
+                       interp_method=o.interp_method)
+    out = jax_chain(flow, bt, wvd, swd, o)
+    out.update(fwd=np.asarray(flow.forward_flow), bwd=np.asarray(flow.backward_flow))
+    again = jax_pipeline.device_flow(jnp.asarray(bt), vr_steps=o.vr_steps,
+                                     smoothing_passes=o.smoothing_passes,
+                                     interp_method=o.interp_method)
+    out.update(fwd_again=np.asarray(again[0]), bwd_again=np.asarray(again[1]))
+    return out
+
+
+# -- the configured chain (tests/test_torch_subsegment.py) ---------------------
+
+CONFIGURED = {"flow_model": "DIS", "interp_method": "lanczos", "subsegment_shrink": 0.1}
+
+
+def record_configured_chain():
+    """The chain under ``PipelineConfig(**CONFIGURED)``: its flows and each
+    stage's labels."""
+    from tobac_flow_tpu.config import PipelineConfig
+    from tobac_flow_tpu.core.flow import create_flow
+
+    bt, wvd, swd, _ = chain_scene()
+    o = PipelineConfig(**CONFIGURED).detection_options()
+    flow = create_flow(bt, model=o.flow_model, vr_steps=o.vr_steps,
+                       smoothing_passes=o.smoothing_passes, interp_method=o.interp_method)
+    out = jax_chain(flow, bt, wvd, swd, o)
+    out.update(fwd=np.asarray(flow.forward_flow), bwd=np.asarray(flow.backward_flow))
+    return out
+
+
+# -- the flow models (tests/test_torch_flow_models.py) -------------------------
+
+MODEL_SHAPE = (64, 96)  # two pyramid levels for every model
+MODELS = {  # name: (JAX module, pair function, params class)
+    "DIS": ("dis", "dis_pair", "DISParams"),
+    "DualTVL1": ("tvl1", "tvl1_pair", "TVL1Params"),
+    "DeepFlow": ("deepflow", "deepflow_pair", "DeepFlowParams"),
+    "PCA": ("pcaflow", "pcaflow_pair", "PCAFlowParams"),
+    "SimpleFlow": ("simpleflow", "simpleflow_pair", "SimpleFlowParams"),
+    "SparseToDense": ("sparse_to_dense", "sparse_to_dense_pair", "SparseToDenseParams"),
+}
+NORMALISATIONS = ("linear", "z_score", "log", "inverse_log")
+
+
+def blob_pair(h, w, shift, seed, depth=60.0):
+    """An anvil-like blob advecting by ``shift`` (x, y) px over noise: two
+    (H, W) float32 BT frames."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for i in range(2):
+        r2 = (xx - 0.4 * w - shift[0] * i) ** 2 + (yy - 0.45 * h - shift[1] * i) ** 2
+        frames.append(290.0 - depth * np.exp(-r2 / (2 * (h / 7) ** 2)))
+    return (np.stack(frames).astype(np.float32)
+            + rng.normal(0, 0.3, (2, h, w)).astype(np.float32))
+
+
+def model_pairs():
+    """Two different frame pairs (2, 2, H, W): a blob moving (2.5, 1.25)
+    px and a shallower one moving (-1.5, 2.0) px."""
+    return np.stack([blob_pair(*MODEL_SHAPE, (2.5, 1.25), 0),
+                     blob_pair(*MODEL_SHAPE, (-1.5, 2.0), 1, depth=40.0)])
+
+
+def record_flow_models():
+    """Each model's JAX pair flow on each pair's quantised frames, and the
+    JAX ``batch_flow`` (Farneback) of the first pair under each jitted
+    normalisation."""
+    import importlib
+
+    import jax
+
+    from tobac_flow_tpu.models import _normalise_pair, batch_flow
+
+    pairs = model_pairs()
+    out = {}
+    for i, (a, b) in enumerate(pairs):
+        p8, n8 = jax.jit(lambda x, y: _normalise_pair(x, y, "linear"))(a, b)
+        for name, (mod, fn, params) in MODELS.items():
+            m = importlib.import_module(f"tobac_flow_tpu.models.{mod}")
+            pair = jax.jit(lambda x, y: getattr(m, fn)(x, y, getattr(m, params)()))
+            out[f"{name}_{i}"] = np.asarray(pair(p8, n8))
+            print(name, i, flush=True)
+    for method in NORMALISATIONS:
+        fwd, bwd = batch_flow(pairs[0], normalisation_method=method)
+        out[f"norm_{method}_fwd"] = np.asarray(fwd)[0]
+        out[f"norm_{method}_bwd"] = np.asarray(bwd)[1]
+        print(method, flush=True)
+    return out
+
+
+# -- subsegmentation (tests/test_torch_subsegment.py) ------------------------
+
+
+def discs_and_bridge():
+    """The reference tests' scene: two discs joined by a thin bridge, one
+    frame (1, 40, 80)."""
+    h, w = 40, 80
+    yy, xx = np.mgrid[0:h, 0:w]
+    mask = ((xx - 20) ** 2 + (yy - 20) ** 2 < 100) | ((xx - 60) ** 2 + (yy - 20) ** 2 < 100)
+    mask |= (np.abs(yy - 20) <= 1) & (xx >= 20) & (xx <= 60)
+    return mask[None]
+
+
+def seeded_mask(t=4, h=48, w=64, seed=0):
+    """Smoothed noise above a threshold: many touching, irregular blobs."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    return ndi.gaussian_filter(rng.normal(size=(t, h, w)), (0, 3, 3)) > 0.05
+
+
+def seeded_flows(shape, seed=1):
+    """Smooth (T, H, W, 2) forward and backward flows within ±3 px."""
+    import scipy.ndimage as ndi
+
+    rng = np.random.default_rng(seed)
+    f = ndi.gaussian_filter(rng.normal(size=(2,) + shape + (2,)), (0, 0, 6, 6, 0))
+    f = 3.0 * f / np.abs(f).max()
+    return f[0].astype(np.float32), f[1].astype(np.float32)
+
+
+SUBSEGMENT_SHRINK = {"discs": 0.2, "seeded": 0.1}
+
+
+def record_subsegment():
+    """``subsegment_labels`` on the two scenes, and ``flow_label`` with
+    ``subsegment_shrink=0.1`` on the seeded mask given the seeded flows."""
+    from tobac_flow_tpu.core.flow import Flow
+    from tobac_flow_tpu.segment.label import flow_label
+    from tobac_flow_tpu.segment.subsegment import subsegment_labels
+
+    mask = seeded_mask()
+    out = {
+        "discs": subsegment_labels(discs_and_bridge(), SUBSEGMENT_SHRINK["discs"]),
+        "seeded": subsegment_labels(mask, SUBSEGMENT_SHRINK["seeded"]),
+    }
+    fwd, bwd = seeded_flows(mask.shape)
+    out["flow_label"] = np.asarray(flow_label(Flow(fwd, bwd), mask, overlap=0.5,
+                                              absolute_overlap=4, subsegment_shrink=0.1,
+                                              peak_min_distance=5))
+    return out
+
+
+# -- flow QC (tests/test_torch_flow_qc.py) ----------------------------------
+
+
+def moving_blob(t, h, w, sx):
+    """A Gaussian blob moving ``sx`` px a frame along x: (T, H, W)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return np.stack([200.0 * np.exp(-((xx - 20 - sx * i) ** 2 + (yy - 16) ** 2) / 30.0)
+                     for i in range(t)]).astype(np.float32)
+
+
+QC_MARGIN = 5  # flow_residual_mse_estimate's margin at 32x64
+
+
+def record_flow_qc():
+    """``calculate_flow_2`` of a moving blob against itself shifted 3 px;
+    ``create_flow`` of the blob, and ``get_flow_residual`` and
+    ``flow_residual_mse_estimate`` given that flow."""
+    from tobac_flow_tpu.core.flow import (
+        calculate_flow_2, create_flow, flow_residual_mse_estimate, get_flow_residual,
+    )
+
+    a = moving_blob(3, 32, 64, 2.0)
+    fwd2, bwd2 = calculate_flow_2(a, np.roll(a, 3, axis=2))
+    frames = moving_blob(4, 32, 64, 2.0)
+    flow = create_flow(frames, model="Farneback")
+    residual = get_flow_residual(frames, flow)
+    all_sky, cold = flow_residual_mse_estimate(frames, flow, margin=QC_MARGIN,
+                                               cold_threshold=100.0)
+    return {"flow2_fwd": np.asarray(fwd2), "flow2_bwd": np.asarray(bwd2),
+            "fwd": np.asarray(flow.forward_flow), "bwd": np.asarray(flow.backward_flow),
+            "residual": np.asarray(residual), "residual_mse": np.array([all_sky, cold])}
+
+
+# -- the fused slice (tests/test_torch_pipeline.py, test_torch_watershed.py) ---
+
+FUSED_SHAPE = (8, 160, 224)
+WS_CASES = (("positive", True), ("positive", False), ("mixed", True))
+
+
+def fused_scene():
+    """``bench.make_scene(*FUSED_SHAPE)``, its markers and their count."""
+    import bench
+
+    bt = bench.make_scene(*FUSED_SHAPE)
+    markers, n = bench.make_markers(bt)
+    return bt, markers, n
+
+
+def scene_digest(*arrays):
+    """A SHA-256 of the arrays' bytes: a recording names the inputs it
+    was made from, so a changed scene fails its test instead of reading a
+    stale record."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def mixed_markers(markers, field):
+    """The markers with a -1 barrier ring around the storms, racing the
+    positive labels."""
+    mixed = markers.copy()
+    mixed[(field > 0.05) & (field < 0.12) & (markers == 0)] = -1
+    return mixed
+
+
+def record_fused_scene():
+    """The fields stage of the fused slice (its flows, growth, field and
+    edges, which the stage given those flows gives again), the fused
+    path's labels, the band radius of those flows, and the whole-volume
+    watershed of each ``WS_CASES`` case (markers, multigrid) on its
+    edges."""
+    import jax.numpy as jnp
+
+    from tobac_flow_tpu import pipeline as jp
+    from tobac_flow_tpu.ops import watershed as jws
+
+    bt, markers, _ = fused_scene()
+    fwd, bwd, growth, field, edges = (np.array(a) for a in jp._fields_stage(jnp.asarray(bt), 5.0))
+    out = {"digest": np.array(scene_digest(bt, markers)), "fwd": fwd, "bwd": bwd,
+           "growth": growth, "field": field, "edges": edges,
+           "labels": np.array(jp.fused_flow_watershed(jnp.asarray(bt), 5.0, markers=markers)[3])}
+    radius = jp.adaptive_band_radius(jnp.asarray(fwd), jnp.asarray(bwd))
+    out["radius"] = np.array(radius)
+    # the fields stage given the stage's own flows gives its fields again,
+    # so they are recorded once
+    tf = jp._detect_fields_stage(jnp.asarray(bt), jnp.asarray(fwd), jnp.asarray(bwd), 5.0, radius)
+    for a, b in zip(tf, (growth, field, edges)):
+        assert np.array_equal(np.asarray(a), b, equal_nan=True)
+    kinds = {"positive": markers, "mixed": mixed_markers(markers, field)}
+    for kind, multigrid in WS_CASES:
+        out[f"ws_{kind}_{multigrid}"] = np.asarray(jws.watershed(
+            fwd, bwd, edges, kinds[kind], mask=field > 0.05, max_iters=128,
+            multigrid=multigrid))
+    return out
+
+
+RECORDS = {
+    "flow_qc": record_flow_qc,
+    "detect_chain": record_detect_chain,
+    "flow_models": record_flow_models,
+    "subsegment": record_subsegment,
+    "configured_chain": record_configured_chain,
+    "fused_scene": record_fused_scene,
+}
+
+
+def main(names):
+    for name in names or RECORDS:
+        out = RECORDS[name]()
+        np.savez_compressed(DATA / f"{name}.npz", **out)
+        print("recorded", DATA / f"{name}.npz", flush=True)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    main(sys.argv[1:])

@@ -4,6 +4,7 @@ the detection chain's chunked stages, on one NVIDIA GPU.
     python3 tools/torch_flood_memory.py [--height 1500] [--width 2500]
         [--depths 6,12,24] [--chunked-depth 24] [--flow-depth 12]
         [--stage-depths 6,12] [--stages-only] [--only PREFIXES] [--json PATH]
+        [--models NAMES] [--model-depth 5]
 
 For each depth T, on ``bench.make_scene(T, H, W)`` with ``make_markers``:
 
@@ -23,8 +24,9 @@ seconds.
 
 Then (or alone, with ``--stages-only``) each time-chunked stage of the
 detection chain, each pass of the cross-file linker and of the
-post-processing, and validation's marker distance (the
-``*_BYTES_PER_PX`` of ``tobac_flow_tpu_torch/device.py``) on
+post-processing, validation's marker distance and the core
+subsegmentation (the ``*_BYTES_PER_PX`` of
+``tobac_flow_tpu_torch/device.py``) on
 ``chip_smoke.deep_scene`` at each ``--stage-depths`` T, given its
 CLI-default flow: whole, (peak - allocated before) / (T x H x W), or per
 pixel of the T - 2 interior frames that the linker's pair histogram and
@@ -35,6 +37,14 @@ one (float64 sums to rtol 1e-12); ``--only`` keeps the stages whose
 constants start with its prefixes.  Every figure is printed with the
 card's name and power limit; ``--json PATH`` also writes them to a
 file.  Run from the repo root.  Imports no JAX.
+
+With ``--models`` (a comma-separated list of registry names, or ``all``),
+only the flow stage of each model (its ``BYTES_PER_PAIR_PX``): on
+``bench.make_scene`` at ``--model-depth`` frames of H×W,
+``pair_flows`` with the detection CLI's refinement and smoothing (cubic,
+then Lanczos), whole ((peak - before) / (pairs × H × W)) and in groups of
+one pair ((peak - before - the two whole flows) / (H × W)), with each
+one's seconds.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from tobac_flow_tpu_torch.schema import dataset as schema  # noqa: E402
 from tobac_flow_tpu_torch.schema import postprocess  # noqa: E402
 from tobac_flow_tpu_torch.track import file_linker, linking  # noqa: E402
 from tobac_flow_tpu_torch.segment.label import link_labels_by_overlap  # noqa: E402
+from tobac_flow_tpu_torch.segment.subsegment import subsegment_labels  # noqa: E402
 from tobac_flow_tpu_torch.utils import labels as labels_mod  # noqa: E402
 from tobac_flow_tpu_torch.utils.stats import find_overlap_mode  # noqa: E402
 from tobac_flow_tpu_torch.validate import validation  # noqa: E402
@@ -226,6 +237,10 @@ def stage_rows(t, h, w, dev, line, only=None):
         # minimum over the 3-frame time margin (a 4-frame chunk reads 10)
         "VALIDATE_BYTES_PER_PX": (lambda b: validation.get_marker_distance(
             dense, 3, device=dev, budget_bytes=b), 3, 8),
+        # the core subsegmentation of the anvil marker mask, as
+        # get_anvil_markers runs it with a subsegment_shrink
+        "SUBSEGMENT_BYTES_PER_PX": (lambda b: subsegment_labels(
+            mask, 0.1, 10, device=dev, budget_bytes=b), 0, 4),
     }
     # the frames each pass reads, where not all t
     frames = {"OVERLAP_BYTES_PER_PX": t - 2, "MERGE_BYTES_PER_PX": t - 2}
@@ -254,6 +269,46 @@ def stage_rows(t, h, w, dev, line, only=None):
     return rows
 
 
+def measure_models(args, dev, line):
+    """Each model's flow stage, whole and in groups of one pair."""
+    import gc
+
+    from tobac_flow_tpu_torch.models import FLOW_MODELS, select_of_model
+
+    names = [n for n in FLOW_MODELS if FLOW_MODELS[n] != "not_implemented"]
+    if args.models != "all":
+        names = args.models.split(",")
+    t, h, w = args.model_depth, args.height, args.width
+    bt = torch.from_numpy(make_scene(t, h, w)).to(dev)
+    px = h * w
+    opts = DetectionOptions()
+    summary = {"card": line, "shape": [t, h, w], "rows": []}
+    for name in names:
+        for interp in ("cubic", "lanczos"):
+            row = {"model": name, "interp_method": interp}
+            for kind, group in (("whole", t - 1), ("groups", 1)):
+                gc.collect()
+                torch.cuda.empty_cache()
+                (fwd, bwd), peak, sec = measured(lambda: pair_flows(
+                    bt, select_of_model(name), opts.vr_steps, opts.smoothing_passes, interp,
+                    device=dev, group=group))
+                outputs = 0 if group == t - 1 else 2 * fwd.numel() * 4
+                row[f"{kind}_bytes_per_pair_px"] = (peak - outputs) / (group * px)
+                row[f"{kind}_s"] = sec
+                row[f"{kind}_finite"] = bool(torch.isfinite(fwd).all()
+                                             and torch.isfinite(bwd).all())
+                del fwd, bwd
+            summary["rows"].append(row)
+            print(json.dumps(row), f"[{line}]", flush=True)
+    summary["bytes_per_pair_px"] = {
+        n: max(max(r["whole_bytes_per_pair_px"], r["groups_bytes_per_pair_px"])
+               for r in summary["rows"] if r["model"] == n) for n in names}
+    if args.json:
+        Path(args.json).write_text(json.dumps(summary, indent=1))
+    print(json.dumps({k: v for k, v in summary.items() if k != "rows"}), f"[{line}]")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=1500)
@@ -268,12 +323,17 @@ def main(argv=None):
     ap.add_argument("--stages-only", action="store_true",
                     help="measure the chain's chunked stages alone")
     ap.add_argument("--json", help="also write the numbers to this file")
+    ap.add_argument("--models", default="",
+                    help="measure these flow models' flow stage alone ('all': every one)")
+    ap.add_argument("--model-depth", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_flood_memory: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     line = card()
+    if args.models:
+        return measure_models(args, dev, line)
     h, w = args.height, args.width
     px = h * w
     opts = DetectionOptions()
