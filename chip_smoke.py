@@ -127,6 +127,22 @@
    cores and anvil markers found; the anvil marker mask's subsegmentation
    in forced 4-frame time chunks equal to the whole volume's.  The anvil
    floods under these flows are left to (a).
+15. The legacy path, and the radar and flux gridding.  (a) Card against
+   CPU (the CPU's side in the worker process), given the card's
+   CLI-default flow of the legacy CLI's scene at (9, 96, 128): the legacy
+   CLI's ``detect_legacy`` (growth markers, edge watershed), its labels'
+   ``get_stats_for_labels``, ``detect_anvils(markers=None)`` and
+   ``legacy.flow_network_watershed`` on a cut, a crafted Level-II archive
+   (written here) decoded and gridded in 2D and 3D, and ``grid_flux`` and
+   ``grid_flux_native`` from memory: identical; the op-by-op filters give
+   ``fused.core_markers``' markers.  (b) ``detect_legacy`` on the GOES
+   scene's first LEGACY_FRAMES frames at 1500x2500, with the kernel's
+   counts reset before and read after (the kernels line's
+   ``dcc_detect_legacy``): each step's seconds and peak, at least one
+   marker and one object; then 4 sites' WSR-88D-shaped volumes (drawn and
+   projected on the host beside the small checks, 2.1e7 gates) binned on
+   the card into the 2D composite and the 20-level 3D histogram, a cut of
+   the 3D histogram held to the CPU's beside the last kernel timings.
 
 The script's own host work runs beside its checks and kernel timings,
 never beside a main path whose seconds it logs: the CPU sides of the
@@ -158,11 +174,13 @@ from __future__ import annotations
 
 import atexit
 import bisect
+import bz2
 import gc
 import json
 import math
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import threading
@@ -1139,6 +1157,429 @@ def check_cli_h5py():
             f"of the chain: {err}")
         return
     raise AssertionError("the synthetic CLI ran without h5py")
+
+
+# -- phase 15: the legacy path, and the radar and flux gridding -------------------
+
+LEVEL2_DATE = 18500  # a Level-II collect date: days since 1 Jan 1970, day 1 (2020-08-26)
+RADAR_FIRST_GATE, RADAR_GATE_SPACING = 2125, 250  # m: WSR-88D super-resolution reflectivity
+RADAR_SCALE, RADAR_OFFSET = 2.0, 66.0  # dBZ = (raw - 66) / 2; raw 0 and 1 flag no echo
+RADAR_RADIALS, RADAR_GATES = 720, 1832  # a super-resolution cut: 0.5 deg radials to 460 km
+RADAR_CUTS = (0.5, 0.9, 1.3, 1.8)  # elevation angles (deg) of each site's volume
+RADAR_SITES = 4  # sites that filter_nexrad_sites finds on the CONUS grid, at least
+RADAR_ALT_EDGES = np.arange(0, 20001, 1000.0)  # m: get_3d_nexrad_hist's 20 levels
+
+
+def level2_radial(site, az, el, raw, collect_ms=43_200_000, icao=b"KTLX"):
+    """One message-31 radial of a Level-II archive (the 12-byte CTM pad,
+    the message header and the body) with an RVOL block at ``site`` (lat,
+    lon, height in m) and a DREF block of the raw gate bytes ``raw``."""
+    lat, lon, height = site
+    vol = struct.pack(">1s3sHBBffhhf", b"R", b"VOL", 44, 1, 0, lat, lon, int(height), 25, 0.0)
+    raw = np.asarray(raw, np.uint8)
+    ref = struct.pack(">1s3sIHHHHHBBff", b"D", b"REF", 0, raw.size, RADAR_FIRST_GATE,
+                      RADAR_GATE_SPACING, 16, 16, 0, 8, RADAR_SCALE, RADAR_OFFSET) + raw.tobytes()
+    pointers = 32 + 2 * 4  # the body's header and two block pointers
+    body = (struct.pack(">4sIHHfBBHBBBBfBbH", icao, collect_ms, LEVEL2_DATE, 1, az, 0, 0, 0, 1,
+                        0, 1, 0, el, 0, 0, 2)
+            + struct.pack(">2i", pointers, pointers + len(vol)) + vol + ref)
+    if (16 + len(body)) % 2:
+        body += b"\x00"
+    header = struct.pack(">HBBHHIHH", (16 + len(body)) // 2, 0, 31, 1, LEVEL2_DATE, collect_ms,
+                         1, 1)
+    return b"\x00" * 12 + header + body
+
+
+def level2_archive(radials, icao=b"KTLX"):
+    """A Level-II archive: the volume header and one bzip2 LDM record of
+    the radials (``level2_radial``)."""
+    payload = bz2.compress(b"".join(radials))
+    return (struct.pack(">9s3siI4s", b"AR2V0006.", b"001", LEVEL2_DATE, 0, icao)
+            + struct.pack(">i", -len(payload)) + payload)
+
+
+def radar_raw(rng, shape):
+    """Raw reflectivity bytes drawn from ``rng``: half the gates without an
+    echo (0), the rest 2..180 (-32 to 57 dBZ)."""
+    return np.where(rng.uniform(size=shape) < 0.5, 0,
+                    rng.integers(2, 181, shape)).astype(np.uint8)
+
+
+def radar_volume(site, seed, cuts=RADAR_CUTS, radials=RADAR_RADIALS, gates=RADAR_GATES):
+    """The gates of one site's volume as the Level-II reader gives them:
+    ``cuts`` elevations of ``radials`` radials of ``gates`` reflectivity
+    gates, their (lat, lon, alt) by ``gate_lat_lon_alt`` and their
+    reflectivity (float64 dBZ, NaN without an echo) from raw bytes drawn
+    from ``seed``: flat (lat, lon, alt, refl) arrays."""
+    from tobac_flow_tpu_torch.data.nexrad_level2 import gate_lat_lon_alt
+
+    rng = np.random.default_rng(seed)
+    az = (0.25 + 0.5 * np.arange(radials))[:, None]
+    rng_m = RADAR_FIRST_GATE + RADAR_GATE_SPACING * np.arange(gates)[None, :]
+    parts = [np.broadcast_arrays(*gate_lat_lon_alt(*site, az, el, rng_m)) for el in cuts]
+    lat, lon, alt = (np.concatenate([p[i].ravel() for p in parts]) for i in range(3))
+    raw = radar_raw(rng, lat.shape).astype(np.float32)
+    refl = np.where(raw < 2, np.float32(np.nan), (raw - RADAR_OFFSET) / RADAR_SCALE)
+    return lat, lon, alt, refl.astype(np.float64)
+
+
+LEGACY_SMALL = (9, 96, 128)  # the legacy CLI's synthetic scene for the card-against-CPU check
+LEGACY_FLOOD_CUT = (slice(0, 6), slice(24, 72), slice(32, 96))  # where (a) floods the others
+LEGACY_FRAMES = 6  # the GOES scene's frames that the legacy path runs at full width
+RADAR_WINDOW = (96, 128)  # the grid of (a)'s radar and flux checks, at the CONUS sector's centre
+RADAR_CHECK_CUT = (slice(600, 800), slice(1100, 1400))  # (b)'s 3D cut held to the CPU
+
+
+def window_grid(h, w, origin=GOES_SMALL_ORIGIN):
+    """A GOES-16 fixed-grid Dataset of (h, w) pixels of the CONUS sector
+    from ``origin`` (x, y), with its projection."""
+    x = CONUS_X0 + (origin[0] + np.arange(w)) * ABI_STEP
+    y = CONUS_Y0 - (origin[1] + np.arange(h)) * ABI_STEP
+    ds = Dataset(coords={"y": y, "x": x})
+    ds["goes_imager_projection"] = DataArray(np.zeros((), np.int32), dims=(),
+                                             attrs=dict(GOES16_PROJECTION))
+    return ds
+
+
+def grid_centre(ds):
+    x, y = ds.coords["x"], ds.coords["y"]
+    lat, lon = ABIProjection(**GOES16_PROJECTION).to_latlon(x[x.size // 2], y[y.size // 2])
+    return float(lat), float(lon)
+
+
+def radar_tar(path, site, seed, radials=240, gates=400):
+    """A tar file of one crafted Level-II archive at ``site``: two cuts of
+    ``radials`` radials of ``gates`` gates, raw bytes from ``seed``."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    msgs = [level2_radial(site, float((0.25 + 0.5 * (i % (radials // 2))) * 720 / radials),
+                          0.5 if i < radials // 2 else 1.5, radar_raw(rng, gates))
+            for i in range(radials)]
+    data = level2_archive(msgs)
+    with tarfile.open(path, "w") as tar:
+        info = tarfile.TarInfo("KTLX20200826_120000_V06.ar2v")
+        info.size = len(data)
+        tar.addfile(info, io.BytesIO(data))
+    return path
+
+
+def flux_datasets(seed, n=4000, frames=2):
+    """Flux files' Datasets from a seed: lat, lon and every flux of
+    ``grid_flux_native.FLUX_VARS`` with its clear-sky pair, one per hour."""
+    from tobac_flow_tpu_torch.cli.grid_flux_native import FLUX_VARS
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(frames):
+        ds = Dataset(coords={"t": np.asarray([np.datetime64("2020-06-01T00:00", "ns")
+                                              + np.timedelta64(frames - 1 - i, "h")]),
+                             "pix": np.arange(n)})
+        ds["lat"] = DataArray(rng.uniform(-60, 60, n), dims=("pix",), name="lat")
+        ds["lon"] = DataArray(rng.uniform(-60, 60, n), dims=("pix",), name="lon")
+        for var in FLUX_VARS:
+            for name in (var, f"{var}_clr"):
+                ds[name] = DataArray(rng.uniform(0, 1000, n).astype(np.float32), dims=("pix",),
+                                     name=name)
+        out.append(ds)
+    return out
+
+
+def latlon_source(goes, seed, frames=2):
+    """A lat/lon field over the grid ``goes`` and its surroundings: the
+    source of ``grid_flux``."""
+    lat, lon = grid_centre(goes)
+    rng = np.random.default_rng(seed)
+    lats, lons = lat + np.linspace(-1.5, 1.5, 120), lon + np.linspace(-2.0, 2.0, 160)
+    src = Dataset(coords={"t": np.datetime64("2020-06-01T12:00", "ns")
+                          + np.arange(frames) * np.timedelta64(1, "h"), "lat": lats, "lon": lons})
+    src["lat"] = DataArray(lats, dims=("lat",))
+    src["lon"] = DataArray(lons, dims=("lon",))
+    src["toa_swup"] = DataArray(rng.uniform(0, 1000, (frames, 120, 160)).astype(np.float32),
+                                dims=("t", "lat", "lon"), attrs={"units": "W m-2"})
+    src["toa_lwup"] = DataArray(rng.uniform(100, 300, (120, 160)).astype(np.float32),
+                                dims=("lat", "lon"), attrs={"units": "W m-2"})
+    return src
+
+
+def legacy_small_inputs():
+    """The legacy CLI's synthetic scene at LEGACY_SMALL (DataArrays), its
+    times and coordinates."""
+    from tobac_flow_tpu_torch.cli.dcc_detect_synthetic import make_scene
+
+    bt, wvd, swd = make_scene(*LEGACY_SMALL)
+    coords = {k: bt.coords[k] for k in ("t", "y", "x")}
+    return (bt, wvd, swd), coords["t"], coords
+
+
+def phase15_small(device, flow, tar_path, budget_bytes=None):
+    """Phase 15 (a)'s runs on ``device`` given the card's legacy ``flow``
+    (whose device it moves to): the legacy CLI's ``detect_legacy``, its
+    labels' ``get_stats_for_labels`` over BT, ``detect_anvils(markers=None)``
+    and ``legacy.flow_network_watershed`` on a cut, the radar archive in
+    ``tar_path`` decoded and gridded (2D composite and 3D), and both flux
+    CLIs' in-memory functions.  Returns a dict of Datasets and arrays (on
+    the host), and the kernel's launches by shape of its floods where the
+    device is the card."""
+    from tobac_flow_tpu_torch import legacy
+    from tobac_flow_tpu_torch.cli import grid_flux, grid_flux_native, grid_nexrad
+    from tobac_flow_tpu_torch.cli.dcc_detect_legacy import detect_legacy
+    from tobac_flow_tpu_torch.data import nexrad
+    from tobac_flow_tpu_torch.detect.analysis import get_stats_for_labels
+    from tobac_flow_tpu_torch.detect.detection import detect_anvils
+
+    device = torch.device(device)
+    flow = Flow(flow.forward_flow.to(device), flow.backward_flow.to(device))
+    (bt, wvd, swd), times, coords = legacy_small_inputs()
+    out = {}
+    ds = detect_legacy(bt, wvd, swd, times, flow=flow, coords=coords)
+    labels = DataArray(ds["watershed_label"].data, dims=("t", "y", "x"), name="watershed_label")
+    for da in get_stats_for_labels(labels, DataArray(torch.from_numpy(bt.values).to(device),
+                                                     dims=("t", "y", "x"), name="bt")):
+        ds[da.name] = da
+    out["legacy"] = ds.load()
+    c = LEGACY_FLOOD_CUT
+    cut = flow[c]
+    field = (wvd.values - swd.values)[c]
+    out["anvils_none"] = detect_anvils(cut, field).cpu().numpy()
+    edges = cut.sobel(np.clip(field, -15, -5), method="nearest")
+    markers = out["legacy"]["growth_markers"].values[c]
+    out["network_ws"] = legacy.flow_network_watershed(
+        edges, markers, cut.forward_flow, cut.backward_flow, mask=field > -12,
+        max_iter=25).cpu().numpy()
+    goes = window_grid(*RADAR_WINDOW)
+    gates = nexrad.get_gates_from_tar(tar_path)
+    out["radar"] = grid_nexrad.grid_nexrad(goes, [gates], device=device).load()
+    gx, gy = nexrad.map_nexrad_to_goes(*gates[:3], goes)
+    out["radar_3d"] = [a.cpu().numpy() for a in nexrad.get_3d_nexrad_hist(
+        gx, gy, gates[2], gates[3], goes, RADAR_ALT_EDGES, device=device)]
+    out["flux"] = grid_flux.grid_flux(goes, latlon_source(goes, 11), ["toa_swup", "toa_lwup"],
+                                      device=device).load()
+    out["flux_native"] = grid_flux_native.grid_flux_native(flux_datasets(12), device).load()
+    return out
+
+
+def cpu_phase15(fwd, bwd, tar_path):
+    """Phase 15 (a)'s CPU side given the card's flows (numpy), run in a
+    worker process (``cpu_legs``)."""
+    torch.set_num_threads(CPU_LEG_THREADS)
+    return phase15_small("cpu", Flow(torch.from_numpy(fwd), torch.from_numpy(bwd)), tar_path)
+
+
+def check_legacy_small(device, card_line, legs):
+    """Phase 15 (a), card against CPU (the CPU's side in ``legs``' worker
+    process): ``phase15_small`` on the card and on the CPU given the card's
+    CLI-default flow of the legacy scene: the datasets identical (markers,
+    labels, their BT statistics, the radar composite, both flux CLIs'
+    grids), the cut's floods and the 3D radar histogram identical; and the
+    op-by-op filters (``get_combined_filters``, ``get_growth_rate``) give
+    ``fused.core_markers``' markers on the card.  Returns the kernel's
+    launches by shape in the card's floods, and a function that waits for
+    the CPU and checks."""
+    from tobac_flow_tpu_torch.detect import detection, fused
+    from tobac_flow_tpu_torch.ops.morphology import binary_opening
+
+    t0 = time.perf_counter()
+    (bt, wvd, swd), times, _ = legacy_small_inputs()
+    flow = create_flow(bt.values, model="Farneback", vr_steps=1, smoothing_passes=1)
+    if flow.device.type != device.type:
+        raise AssertionError(f"create_flow ran on {flow.device}, not on the card")
+    tar_path = ws_sweeps._BUILD_DIR / "radar_small.tar"
+    tar_path.parent.mkdir(parents=True, exist_ok=True)
+    lat, lon = grid_centre(window_grid(*RADAR_WINDOW))
+    radar_tar(tar_path, (lat, lon, 250.0), 13)
+    cpu_run = legs.submit(cpu_phase15, flow.forward_flow.cpu().numpy(),
+                          flow.backward_flow.cpu().numpy(), str(tar_path))
+    reset_counts()
+    card = phase15_small(device, flow, str(tar_path))
+    torch.cuda.synchronize()
+    launches, by_shape = read_counts()
+    # the op-by-op filters against the fused chain's markers, on the card
+    b, w, sw = (torch.from_numpy(a.values).to(device) for a in (bt, wvd, swd))
+    combined = detection.get_combined_filters(flow, b, w, sw)
+    markers = (detection.get_growth_rate(flow, -b, times, "cubic") * combined > 0.5) | (
+        detection.get_growth_rate(flow, w, times, "cubic") * combined > 0.25)
+    markers = binary_opening(markers, structure=fused._s2d_structure())
+    want = fused.core_markers(b, w, sw, flow.forward_flow, flow.backward_flow,
+                              detection._per_minute(flow, times), 0.25, 0.5, True)
+    if not torch.equal(markers, want) or int(want.sum()) == 0:
+        raise AssertionError(f"legacy (a): the op-by-op filters' markers ({int(markers.sum())} "
+                             f"px) differ from fused.core_markers' ({int(want.sum())} px)")
+    n_markers = int(want.sum())
+    del b, w, sw, combined, markers, want
+    log(f"legacy and gridding (a): the card's sides in {time.perf_counter() - t0:.1f} s: the "
+        f"legacy CLI at {LEGACY_SMALL}, detect_anvils(markers=None) and flow_network_watershed "
+        f"on its cut, {launches} ws_sweeps launches {by_shape}; the op-by-op filters give "
+        f"fused.core_markers' {n_markers} marker pixels [{card_line}]")
+
+    def finish():
+        cpu = cpu_run.result()
+        legacy_ds = cpu["legacy"]
+        counts = {k: int(legacy_ds[k].values.max()) for k in ("growth_markers",
+                                                              "watershed_label")}
+        if min(counts.values()) == 0 or cpu["anvils_none"].max() == 0:
+            raise AssertionError(f"legacy (a): an empty result {counts}, anvils "
+                                 f"{cpu['anvils_none'].max()}")
+        for name in ("legacy", "radar", "flux", "flux_native"):
+            compare_datasets(cpu[name], card[name], rtol32=0.0, rtol64=0.0)
+        for name in ("anvils_none", "network_ws"):
+            if not np.array_equal(cpu[name], card[name]):
+                raise AssertionError(f"legacy (a): {name} card != CPU")
+        for a, b in zip(cpu["radar_3d"], card["radar_3d"]):
+            if not np.array_equal(a, b, equal_nan=True):
+                raise AssertionError("legacy (a): the 3D radar histogram card != CPU")
+        gates = int(cpu["radar"]["nexrad_gate_count"].values.sum())
+        log(f"legacy and gridding (a) checks: card = CPU bit for bit: the legacy CLI's dataset "
+            f"(markers {counts['growth_markers']}, objects {counts['watershed_label']}, their "
+            f"BT mean, std, max, min), detect_anvils(markers=None) "
+            f"({int(cpu['anvils_none'].max())} anvil), flow_network_watershed "
+            f"({int(cpu['network_ws'].max())} labels), the crafted archive's {gates} gates in "
+            f"{RADAR_WINDOW} (2D composite and 20-level 3D), grid_flux and grid_flux_native")
+
+    return by_shape, finish
+
+
+def run_legacy(device, card_line, goes_fields):
+    """Phase 15 (b), the legacy path: ``detect_legacy`` (the CLI-default
+    flow, the multichannel growth markers and the edge watershed) on the
+    CONUS-shaped GOES scene's first LEGACY_FRAMES frames at 1500x2500 on
+    the card, with the kernel's counts reset just before and read just
+    after.  Each step's seconds, peak over its start against the budget at
+    the path's start, the flood's rounds and the launches by shape are
+    logged.  Checks: at least one marker and one object; every peak
+    within the budget.  Returns (launches, launches by shape)."""
+    from tobac_flow_tpu_torch.cli.dcc_detect_legacy import detect_legacy
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bt, wvd, swd = (torch.from_numpy(np.asarray(f.values)[:LEGACY_FRAMES]).to(device)
+                    for f in goes_fields)
+    times = np.asarray(goes_fields[0].coords["t"])[:LEGACY_FRAMES]
+    torch.cuda.synchronize()
+    budget = port_device.memory_budget(device)
+    stats = {}
+    reset_counts()
+    t1 = time.perf_counter()
+    ds = detect_legacy(bt, wvd, swd, times, device=device, stats=stats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    launches, by_shape = read_counts()
+    markers = int(ds["growth_markers"].data.max())
+    labels = ds["watershed_label"].data
+    objects, labelled = int(labels.max()), int((labels > 0).sum())
+    steps = ("flow", "markers", "watershed", "edge_prep", "edge_flood", "edge_opening")
+    over = [n for n in steps if stats[f"{n}_peak_bytes"] - stats[f"{n}_start_bytes"] > budget]
+    if markers == 0 or objects == 0 or launches == 0 or over:
+        raise AssertionError(f"legacy (b): markers {markers}, objects {objects}, launches "
+                             f"{launches}, peaks over the budget {over}")
+    del ds, labels, bt, wvd, swd
+    log(f"legacy (b) {(LEGACY_FRAMES,) + JOB_FRAME} of the GOES scene [{card_line}]: "
+        f"{seconds:.3f} s; " + "; ".join(
+            f"{n} {stats[n + '_s']:.3f} s, peak {(stats[n + '_peak_bytes'] - stats[n + '_start_bytes']) / 2**30:.3f} GiB over its start"
+            for n in steps)
+        + f" (budget {budget / 2**30:.3f} GiB); flood rounds " + ", ".join(
+            f"{k} {v}" for k, v in sorted(stats.items()) if k.endswith("rounds"))
+        + f"; growth markers {markers}, objects {objects} ({labelled} px); ws_sweeps launches "
+        f"{launches} {by_shape}; phase {time.perf_counter() - t0:.1f} s")
+    return launches, by_shape
+
+
+def radar_gates(goes):
+    """Phase 15 (b)'s radar volumes, on the host: RADAR_SITES sites that
+    ``filter_nexrad_sites`` finds on the grid ``goes``, each a volume of
+    ``radar_volume``'s shape (RADAR_CUTS x RADAR_RADIALS x RADAR_GATES
+    gates) drawn from its seed, parallax-mapped to scan angles by
+    ``map_nexrad_to_goes``.  Returns (sites, per site (x, y, alt, refl),
+    seconds drawing, seconds mapping)."""
+    from tobac_flow_tpu_torch.data import nexrad
+
+    sites = nexrad.filter_nexrad_sites(goes)
+    if len(sites) < RADAR_SITES:
+        raise AssertionError(f"radar: {len(sites)} sites on the grid, want {RADAR_SITES}")
+    # spread over the grid: every len(sites) // RADAR_SITES-th site
+    sites = sites[::len(sites) // RADAR_SITES][:RADAR_SITES]
+    t0 = time.perf_counter()
+    volumes = [radar_volume(nexrad.NEXRAD_SITES[s] + (200.0 + 100.0 * k,), 100 + k)
+               for k, s in enumerate(sites)]
+    t1 = time.perf_counter()
+    mapped = []
+    for lat, lon, alt, refl in volumes:
+        gx, gy = nexrad.map_nexrad_to_goes(lat, lon, alt, goes)
+        mapped.append((gx, gy, alt, refl))
+    return sites, mapped, t1 - t0, time.perf_counter() - t1
+
+
+def run_radar(device, card_line, goes, made):
+    """Phase 15 (b), the radar gridding on the card: ``made``'s gates
+    (``radar_gates``, made beside earlier phases) binned by
+    ``get_nexrad_hist`` per site and composited (counts summed, mean
+    reflectivities by ``fmax``, as ``regrid_nexrad``), and by
+    ``get_3d_nexrad_hist`` over all sites, timed.  Checks: every gate on
+    the grid counted, means finite exactly where counts are positive, the
+    3D counts summed over altitude within the composite's (gates above
+    the top level are left out).  Returns a
+    function that starts the CPU's check of RADAR_CHECK_CUT (the 3D
+    histogram over that cut of the grid, its border bins left out, whose
+    outer edges are the cut's own) in a thread and gives the function
+    that waits for it."""
+    from tobac_flow_tpu_torch.data import nexrad
+
+    (sites, mapped, drawn, projected), _, waited = made()
+    n = sum(m[0].size for m in mapped)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = mean = None
+    for gx, gy, alt, refl in mapped:
+        c, m = nexrad.get_nexrad_hist(gx, gy, refl, goes, device=device)
+        counts, mean = (c, m) if counts is None else (counts + c, torch.fmax(mean, m))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gx, gy, alt, refl = (np.concatenate([m[i] for m in mapped]) for i in range(4))
+    t2 = time.perf_counter()
+    c3, m3 = nexrad.get_3d_nexrad_hist(gx, gy, alt, refl, goes, RADAR_ALT_EDGES, device=device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    gridded = int(counts.sum())
+    in_levels = int(c3.sum())  # gates above the top level (20 km) are left out in 3D
+    if (gridded == 0 or not bool((c3.sum(0) <= counts).all()) or not 0 < in_levels <= gridded
+            or not torch.equal(torch.isfinite(mean), counts > 0)
+            or not torch.equal(torch.isfinite(m3), c3 > 0)):
+        raise AssertionError(f"radar (b): {gridded} gates gridded; 2D and 3D counts or means "
+                             f"disagree")
+    levels = int((c3.sum((1, 2)) > 0).sum())
+    ry, rx = RADAR_CHECK_CUT
+    card_cut = [a[:, ry, rx].cpu().numpy() for a in (c3, m3)]
+    del c3, m3, counts, mean
+    log(f"radar (b) [{card_line}]: {len(sites)} sites {sites} on the {JOB_FRAME} CONUS grid, "
+        f"{n} gates ({len(RADAR_CUTS)} cuts of {RADAR_RADIALS}x{RADAR_GATES} a site), drawn "
+        f"in {drawn:.2f} s and projected in {projected:.2f} s on the host ({waited:.1f} s "
+        f"waited for); binned on the card: 2D composite {t1 - t0:.3f} s ({gridded} gates on "
+        f"the grid), 3D {t3 - t2:.3f} s ({in_levels} gates in {levels} of "
+        f"{RADAR_ALT_EDGES.size - 1} levels)")
+
+    def start_check():
+        cut = window_grid(*JOB_FRAME)
+        cut.coords["x"] = goes.coords["x"][rx]
+        cut.coords["y"] = goes.coords["y"][ry]
+        job = prefetched(lambda: [a.numpy() for a in nexrad.get_3d_nexrad_hist(
+            gx, gy, alt, refl, cut, RADAR_ALT_EDGES, device="cpu")])
+
+        def finish():
+            want = job()[0]
+            inner = (slice(None), slice(1, -1), slice(1, -1))
+            for name, a, b in zip(("counts", "means"), want, card_cut):
+                if not np.array_equal(a[inner], b[inner], equal_nan=True):
+                    raise AssertionError(f"radar (b): the 3D {name} of the cut card != CPU")
+            log(f"radar (b) check: the 3D histogram's cut {card_cut[0].shape} (its border bins "
+                f"left out) equals the CPU's bit for bit ({int(want[0][inner].sum())} gates)")
+
+        return finish
+
+    return start_check
 
 
 def chunk_budget(shape, mixed, chunk):
@@ -3294,6 +3735,8 @@ def main():
     shutil.rmtree(seviri_dir, ignore_errors=True)
     seviri_dir.mkdir(parents=True)
     atexit.register(shutil.rmtree, seviri_dir, True)
+    conus = window_grid(*JOB_FRAME, origin=(0, 0))  # the GOES scene's grid
+    radar_made = prefetched(radar_gates, conus)
     with cpu_legs() as legs:
         small = check_chain_small(device, card_line, legs)
         goes_scene = prefetched(goes_frames, GOES_FULL, GOES_MISSING)
@@ -3304,16 +3747,19 @@ def main():
         deep_scene_made = (deep_at, prefetched(deep_inputs, deep_at))
         finish_chunked_small = check_chunked_small(device, card_line, legs)
         config, finish_configured = check_configured_small(device, card_line, legs)
+        legacy_small_by_shape, finish_legacy_small = check_legacy_small(device, card_line, legs)
         small[3]()
         finish_goes_small()
         finish_chunked_small()
         finish_configured()
+        finish_legacy_small()
         t0 = time.perf_counter()
         seviri_paths, seviri_written = archives.result()
         seviri_archived = (seviri_paths, seviri_written, time.perf_counter() - t0)
         del small
     goes_scene()
     deep_scene_made[1]()
+    radar_made()
 
     # the chain's profile at the bench frame, the CONUS-shaped GOES run, then
     # the chunked chain against it while the deep chain's scene is made
@@ -3353,7 +3799,11 @@ def main():
     torch.cuda.empty_cache()
     configured_launches, configured_by_shape, _ = run_configured(
         device, card_line, configured_fields, config)
+    # the legacy path on the same scene, and the radar gridding on its grid
+    legacy_launches, legacy_by_shape = run_legacy(device, card_line, configured_fields)
     del configured_fields
+    start_radar_check = run_radar(device, card_line, conus, radar_made)
+    del radar_made
     # the kernel at the new shapes checked and timed in CUDA graphs while the
     # CPU sides of the statistics' and validation's cut checks run in
     # threads; then those checks ((c) first, as the statistics' forced
@@ -3361,20 +3811,23 @@ def main():
     # host-bound times with nothing beside them
     finish_validation = start_validation_check()
     finish_statistics = start_statistics_check()
+    finish_radar = start_radar_check()
 
     def finish_checks():
         finish_validation()
         finish_statistics()
+        finish_radar()
 
     worst = max(worst, check_and_time_new_shapes(
         {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape, **seviri_by_shape,
-         **configured_by_shape},
+         **configured_by_shape, **legacy_by_shape, **legacy_small_by_shape},
         per_shape, device, card_line, finish_checks))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape,
              "statistics": stats_by_shape, "validation": validation_by_shape,
              "dcc_detect_seviri_nat": seviri_by_shape,
-             "run_detection_configured": configured_by_shape}
+             "run_detection_configured": configured_by_shape,
+             "dcc_detect_legacy": legacy_by_shape, "nexrad_gridding": {}}
 
     for key, row in per_shape.items():
         counts = [c.get(key, 0) for c in paths.values()]
@@ -3395,7 +3848,7 @@ def main():
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": launches + goes_launches + deep_launches + seviri_launches
-        + configured_launches,
+        + configured_launches + legacy_launches,
         "max_abs_err": worst,
         "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
         "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
@@ -3406,7 +3859,8 @@ def main():
                "windows cut from the deep chain, their statistics and their validation, which "
                "flood nothing, the SEVIRI native CLI's detection of its crop, and the "
                "configured chain's flow, cores and anvil markers at the GOES job's frame, "
-               "whose subsegmentation floods in plane): "
+               "whose subsegmentation floods in plane, the legacy CLI's path on the GOES "
+               "scene's first frames, and the radar gridding, which floods nothing): "
                "the sum over its "
                "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},

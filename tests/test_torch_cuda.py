@@ -591,3 +591,84 @@ def test_lanczos_smoothing_and_subsegmentation_on_card_equal_cpu(cuda):
     chunked = subsegment_labels(mask, 0.1, device=cuda,
                                 budget_bytes=port_device.frames_budget(4))
     assert torch.equal(want, chunked.cpu())
+
+
+@pytest.mark.parametrize("shape,k", [((6, 1500, 2500), 1), ((6, 1500, 2500), 8),
+                                     ((6, 375, 625), 1), ((6, 375, 625), 8)])
+def test_kernel_at_the_legacy_flood_classes(cuda, shape, k):
+    """The legacy path's flood at 6x1500x2500 launches these volume classes."""
+    _assert_kernel_equals_plain(sweep_inputs(shape, 1, cuda), IN_PLANE[1], k)
+
+
+@pytest.mark.parametrize("form", ["dense", "shifts", "waves"])
+def test_scatter_min_on_card_equals_cpu(cuda, form):
+    """The temporal scatter-min of the floods, in each of its three forms:
+    the card's folds give the CPU's bits, with pushes of every shift and
+    collisions."""
+    from tobac_flow_tpu_torch.ops import watershed as pws
+
+    def _banded_scatter_min(*args):
+        *args, radius = args
+        keyed = pws._shift_keys(args[3], args[2] != ws_sweeps.META_MAX, radius)
+        if form == "dense":
+            return pws._scatter_min_dense(*args, radius, keyed[1])
+        return getattr(pws, f"_scatter_min_{form}")(*args, radius, keyed)
+
+    rng = np.random.default_rng(3)
+    shape = (3, 90, 130)
+    cost = rng.normal(0, 1, shape).astype(np.float32)
+    cost2 = rng.normal(0, 1, shape).astype(np.float32)
+    meta = rng.integers(2, 40, shape).astype(np.int32) | (rng.integers(0, 4, shape) << 23).astype(
+        np.int32)
+    meta[rng.uniform(size=shape) < 0.3] = ws_sweeps.META_MAX
+    dy, dx = (rng.integers(-12, 13, shape).astype(np.int32) for _ in range(2))
+    args = (cost, cost2, meta, dy, dx)
+    cpu = _banded_scatter_min(*(torch.from_numpy(a) for a in args), 10)
+    card = _banded_scatter_min(*(torch.from_numpy(a).to(cuda) for a in args), 10)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a, b.cpu())
+
+
+def test_legacy_path_on_card_equals_cpu(cuda):
+    """``detect_legacy`` at 8x48x64 given the card's flows: the card's
+    markers and labels are the CPU's."""
+    from tobac_flow_tpu_torch.cli.dcc_detect_legacy import detect_legacy
+    from tobac_flow_tpu_torch.cli.dcc_detect_synthetic import make_scene
+
+    bt, wvd, swd = make_scene(8, 48, 64)
+    times = bt.coords["t"]
+    flow = create_flow(bt.values, model="Farneback", vr_steps=1, smoothing_passes=1,
+                       device=cuda)
+    card = detect_legacy(bt, wvd, swd, times, flow=flow)
+    cpu = detect_legacy(bt, wvd, swd, times,
+                        flow=Flow(flow.forward_flow.cpu(), flow.backward_flow.cpu()))
+    for name in ("growth_markers", "watershed_label"):
+        assert card[name].data.device.type == "cuda"
+        assert torch.equal(card[name].data.cpu(), cpu[name].data)
+
+
+@pytest.mark.parametrize("flip", [True, False])
+def test_radar_histograms_on_card_equal_cpu(cuda, flip):
+    """``get_nexrad_hist`` and ``get_3d_nexrad_hist`` of 3 million gates:
+    the card's counts and means are the CPU's, bit for bit."""
+    from chip_smoke import RADAR_ALT_EDGES, radar_volume, window_grid
+    from tobac_flow_tpu_torch.data import nexrad
+    from tobac_flow_tpu_torch.data.abi import get_abi_proj
+
+    goes = window_grid(300, 400, origin=(1100, 650))
+    if not flip:
+        goes.coords["y"] = goes.coords["y"][::-1].copy()
+    lat, lon = get_abi_proj(goes).to_latlon(goes.coords["x"][200], goes.coords["y"][150])
+    gates = radar_volume((float(lat), float(lon), 300.0), 7, cuts=(0.5, 2.4), radials=720,
+                         gates=1000)
+    gx, gy = nexrad.map_nexrad_to_goes(*gates[:3], goes)
+    for fn, args in ((nexrad.get_nexrad_hist, (gx, gy, gates[3], goes)),
+                     (nexrad.get_3d_nexrad_hist, (gx, gy, gates[2], gates[3], goes,
+                                                  RADAR_ALT_EDGES))):
+        card = fn(*args, device=cuda)
+        cpu = fn(*args, device="cpu")
+        assert int(card[0].sum()) > 0
+        for a, b in zip(card, cpu):
+            a = a.cpu()
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))

@@ -31,7 +31,25 @@ def _ws_args():
 
 
 ENTRIES = ["fused_flow_watershed", "device_flow", "watershed", "create_flow",
-           "run_detection", "Flow.from_numpy"]
+           "run_detection", "Flow.from_numpy", "detect_legacy", "get_curvature_filter",
+           "get_peak_filter", "get_watershed_mask", "flow_network_watershed", "flow_label",
+           "get_nexrad_hist", "get_3d_nexrad_hist", "regrid_nexrad", "grid_nexrad",
+           "regrid_latlon_to_abi", "grid_flux", "bin_to_latlon", "grid_flux_native"]
+
+
+def _grid():
+    """A small GOES-16 fixed-grid Dataset of the port's, and a flux Dataset."""
+    from tobac_flow_tpu_torch.data.ncdataset import DataArray, Dataset
+
+    ds = Dataset(coords={"y": 0.05 - np.arange(H) * 56e-6, "x": 0.02 + np.arange(W) * 56e-6})
+    ds["goes_imager_projection"] = DataArray(np.zeros((), np.int32), dims=(), attrs={
+        "semi_major_axis": 6378137.0, "semi_minor_axis": 6356752.31414,
+        "perspective_point_height": 35786023.0, "longitude_of_projection_origin": -75.0})
+    src = Dataset(coords={"t": np.asarray([np.datetime64("2020-06-01", "ns")])})
+    for name, v in (("lat", np.full(5, 30.0)), ("lon", np.full(5, -70.0)),
+                    ("toa_swup", np.ones(5))):
+        src[name] = DataArray(v, dims=("pix",))
+    return ds, src
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -40,7 +58,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
     bt = np.full((T, H, W), 250.0, np.float32)
     times = np.arange(T) * np.timedelta64(300, "s") + np.datetime64("2020-06-01", "ns")
     flow = np.zeros((T, H, W, 2), np.float32)
+    from tobac_flow_tpu_torch import legacy
+    from tobac_flow_tpu_torch.cli import grid_flux, grid_flux_native, grid_nexrad
+    from tobac_flow_tpu_torch.cli.dcc_detect_legacy import detect_legacy
+    from tobac_flow_tpu_torch.data import nexrad
+    from tobac_flow_tpu_torch.detect import detection
+
+    grid, src = _grid()
+    gates = (np.full(4, 30.0), np.full(4, -70.0), np.zeros(4), np.full(4, 20.0))
     call = {
+        "detect_legacy": lambda: detect_legacy(bt, bt - 260, bt - 250, times),
+        "get_curvature_filter": lambda: detection.get_curvature_filter(bt),
+        "get_peak_filter": lambda: detection.get_peak_filter(bt),
+        "get_watershed_mask": lambda: detection.get_watershed_mask(bt),
+        "flow_network_watershed": lambda: legacy.flow_network_watershed(
+            bt, np.ones((T, H, W), np.int32), flow, flow),
+        "flow_label": lambda: legacy.flow_label(bt > 0, flow, flow),
+        "get_nexrad_hist": lambda: nexrad.get_nexrad_hist(*gates[:2], gates[3], grid),
+        "get_3d_nexrad_hist": lambda: nexrad.get_3d_nexrad_hist(*gates[:3], gates[3], grid),
+        "regrid_nexrad": lambda: nexrad.regrid_nexrad([gates], grid),
+        "grid_nexrad": lambda: grid_nexrad.grid_nexrad(grid, [gates]),
+        "regrid_latlon_to_abi": lambda: grid_flux.regrid_latlon_to_abi(
+            gates[3], gates[0], gates[1], grid),
+        "grid_flux": lambda: grid_flux.grid_flux(grid, src, ["toa_swup"]),
+        "bin_to_latlon": lambda: grid_flux_native.bin_to_latlon(
+            gates[3], gates[0], gates[1], np.arange(-90.0, 91.0), np.arange(-180.0, 181.0)),
+        "grid_flux_native": lambda: grid_flux_native.grid_flux_native([src]),
         "fused_flow_watershed": lambda: fused_flow_watershed(bt, 5.0),
         "device_flow": lambda: device_flow(bt),
         "watershed": lambda: watershed(*_ws_args()),

@@ -17,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "tobac_flow_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] + [
     PORT.parent / "tools" / name
     for name in ("torch_flood_memory.py", "torch_chunked_fixed_point.py",
-                 "torch_goes_probe.py")]
+                 "torch_goes_probe.py", "torch_scatter_min_forms.py",
+                 "torch_legacy_probe.py")]
 
 
 def _imported_roots(tree):
@@ -113,7 +114,9 @@ def test_scan_sees_the_package():
             "cli/dcc_statistics.py", "config.py", "utils/normalisation.py", "ops/warp.py",
             "models/dis.py", "models/tvl1.py", "models/deepflow.py", "models/pcaflow.py",
             "models/simpleflow.py", "models/sparse_to_dense.py",
-            "segment/subsegment.py"} <= names
+            "segment/subsegment.py", "legacy.py", "decorators.py", "cli/dcc_detect_legacy.py",
+            "data/nexrad.py", "data/nexrad_level2.py", "cli/grid_nexrad.py", "cli/grid_flux.py",
+            "cli/grid_flux_native.py", "detect/__init__.py", "detect/analysis.py"} <= names
     # the time-chunked flood and the grouped stages live in these modules
     assert "_watershed_time_chunked" in (PORT / "ops" / "watershed.py").read_text()
     assert "group_size" in (PORT / "pipeline.py").read_text()
@@ -128,6 +131,12 @@ CONFIGURED_PATH = (
     "tobac_flow_tpu_torch.models.tvl1", "tobac_flow_tpu_torch.models.deepflow",
     "tobac_flow_tpu_torch.models.pcaflow", "tobac_flow_tpu_torch.models.simpleflow",
     "tobac_flow_tpu_torch.models.sparse_to_dense", "tobac_flow_tpu_torch.segment.subsegment",
+    # the legacy path and the radar and flux gridding
+    "tobac_flow_tpu_torch.legacy", "tobac_flow_tpu_torch.decorators",
+    "tobac_flow_tpu_torch.detect", "tobac_flow_tpu_torch.cli.dcc_detect_legacy",
+    "tobac_flow_tpu_torch.data.nexrad", "tobac_flow_tpu_torch.data.nexrad_level2",
+    "tobac_flow_tpu_torch.cli.grid_nexrad", "tobac_flow_tpu_torch.cli.grid_flux",
+    "tobac_flow_tpu_torch.cli.grid_flux_native",
 )
 
 
@@ -147,6 +156,7 @@ def imported_without_jax():
 
 @pytest.mark.parametrize("module", CONFIGURED_PATH)
 def test_new_modules_import_without_jax(module, imported_without_jax):
-    """Each module of the configured flow path imports where JAX does not."""
+    """Each module of the configured flow path, the legacy path and the
+    gridding imports where JAX does not."""
     imported, errors = imported_without_jax
     assert module in imported, errors

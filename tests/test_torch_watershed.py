@@ -103,3 +103,36 @@ def test_banded_scatter_min_identical_to_jax(radius, spread, live_share):
     assert (np.asarray(want[2]) != META_MAX).sum() > 50
     for w, g in zip(want, got):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("radius, spread, live_share, shape", [
+    (5, 1, 0.3, (2, 24, 40)), (5, 7, 0.6, (2, 24, 40)), (20, 2, 0.1, (2, 24, 40)),
+    (3, 3, 1.0, (24, 40)), (20, 20, 0.7, (3, 30, 45)), (2, 1, 1.0, (2, 24, 40)),
+])
+def test_compact_scatter_min_identical_to_jax(radius, spread, live_share, shape):
+    """The scatter-min's compact forms, which run where many shifts are
+    taken on the card (shift by shift: each shift's pushes gathered and
+    folded at the cells they reach, out-of-frame pushes into a spare row;
+    in waves: every cell's k-th push at once), give the reference's
+    outputs and the dense form's on random pushes with tied costs, tied
+    claims of both signs of zero, unclaimed sources carrying displacements
+    and pushes out of the band."""
+    from tobac_flow_tpu.ops.watershed import _banded_scatter_min as jax_scatter
+    from tobac_flow_tpu_torch.ops.ws_sweeps import META_MAX
+
+    rng = np.random.default_rng(radius * 100 + spread)
+    live = rng.uniform(0, 1, shape) < live_share
+    cost = np.where(live, np.round(rng.uniform(-1, 1, shape) * 4) / 4, np.inf).astype(np.float32)
+    cost2 = np.where(live, np.round(rng.uniform(0, 1, shape) * 4) / 4, np.inf).astype(np.float32)
+    meta = (rng.integers(0, 3, shape) << 23 | rng.integers(1, 6, shape)).astype(np.int32)
+    meta = np.where(live, meta, META_MAX).astype(np.int32)
+    dy, dx = (rng.integers(-spread, spread + 1, shape).astype(np.int32) for _ in range(2))
+    want = jax_scatter(cost, cost2, meta, dy, dx, radius, META_MAX)
+    args = [torch.from_numpy(a) for a in (cost, cost2, meta, dy, dx)]
+    keyed = pws._shift_keys(args[3], args[2] != META_MAX, radius)
+    dense = pws._scatter_min_dense(*args, radius, keyed[1])
+    assert (np.asarray(want[2]) != META_MAX).sum() > 50
+    for form in (pws._scatter_min_shifts, pws._scatter_min_waves):
+        for w, c, d in zip(want, form(*args, radius, keyed), dense):
+            assert np.array_equal(np.asarray(w).view(np.int32), c.numpy().view(np.int32))
+            assert torch.equal(c, d)

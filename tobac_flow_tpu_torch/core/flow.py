@@ -204,14 +204,14 @@ class Flow(AbstractFlow):
                      method=method, dtype=dtype, fill_value=fill_value, direction=direction)
 
     def watershed(self, field, markers, mask=None, connectivity=1, stats=None,
-                  budget_bytes=None):
+                  budget_bytes=None, max_iters=None):
         """Flow-aware watershed segmentation (see ``ops.watershed``; in time
         chunks over ``budget_bytes``)."""
         from tobac_flow_tpu_torch.ops.watershed import watershed
 
         return watershed(self.forward_flow, self.backward_flow, field, markers, mask=mask,
-                         connectivity=connectivity, stats=stats, budget_bytes=budget_bytes,
-                         device=self.device)
+                         connectivity=connectivity, max_iters=max_iters, stats=stats,
+                         budget_bytes=budget_bytes, device=self.device)
 
     def label(self, data, structure=DEFAULT_STRUCTURE, dtype=torch.int32, overlap=0,
               absolute_overlap=1, subsegment_shrink=0, peak_min_distance=5,

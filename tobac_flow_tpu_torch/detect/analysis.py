@@ -1,7 +1,10 @@
-"""Per-label filters and statistics (counterpart of the parts of
-``tobac_flow_tpu/detect/analysis.py`` that ``run_detection`` uses).  The
-per-pixel reductions run on the label tensor's device; the per-label
-tables come back to the host as numpy arrays over labels 1..max."""
+"""Per-label filters and statistics (counterpart of
+``tobac_flow_tpu/detect/analysis.py``).  The per-pixel reductions run on
+the label tensor's device; the per-label tables come back to the host as
+numpy arrays over labels 1..max, and the ``filter_labels_by_*`` family
+renumbers the labels it keeps 1..n in order on the labels' device.  Those
+filters keep an object of at least ``min_length`` steps, as the reference
+has them (the detection functions keep longer than ``min_length``)."""
 
 from __future__ import annotations
 
@@ -12,10 +15,13 @@ from tobac_flow_tpu_torch.data.ncdataset import DataArray, as_tensor
 from tobac_flow_tpu_torch.device import (
     LABEL_STATS_BYTES_PER_PX, LABEL_TABLE_BYTES_PER_PX, chunk_plan, time_chunks,
 )
-from tobac_flow_tpu_torch.utils.labels import LabelSegments, SegmentChunks
+from tobac_flow_tpu_torch.utils.labels import LabelSegments, SegmentChunks, remap_labels
 
 __all__ = [
-    "find_object_lengths", "get_label_stats", "mask_labels", "n_unique_along_axis",
+    "find_object_lengths", "mask_labels", "filter_labels_by_length", "filter_labels_by_mask",
+    "filter_labels_by_length_and_mask", "filter_labels_by_multimask",
+    "filter_labels_by_length_and_multimask", "filter_labels_by_length_and_multimask_legacy",
+    "get_stats_for_labels", "get_label_stats", "n_unique_along_axis",
     "weighted_statistics_on_labels",
 ]
 
@@ -60,6 +66,106 @@ def mask_labels(labels, mask, budget_bytes=None):
     if hit is None:
         return np.zeros(0, dtype=bool)
     return hit[1:].cpu().numpy().astype(bool)
+
+
+def _labels(labels):
+    return as_tensor(labels) if isinstance(labels, DataArray) else torch.as_tensor(labels)
+
+
+def _masks_hit(labels, masks, budget_bytes):
+    if not isinstance(masks, list):
+        raise ValueError("masks input must be a list of masks to process")
+    return np.logical_and.reduce(
+        [mask_labels(labels, as_tensor(m) if isinstance(m, DataArray) else m,
+                     budget_bytes=budget_bytes) for m in masks])
+
+
+def filter_labels_by_length(labels, min_length, budget_bytes=None):
+    """Labels of at least ``min_length`` steps, renumbered in order."""
+    labels = _labels(labels)
+    keep = find_object_lengths(labels, budget_bytes=budget_bytes) >= min_length
+    return remap_labels(labels, keep, budget_bytes=budget_bytes)
+
+
+def filter_labels_by_mask(labels, mask, budget_bytes=None):
+    """Labels that overlap ``mask``, renumbered in order."""
+    labels = _labels(labels)
+    return remap_labels(labels, _masks_hit(labels, [mask], budget_bytes),
+                        budget_bytes=budget_bytes)
+
+
+def filter_labels_by_length_and_mask(labels, mask, min_length, budget_bytes=None):
+    """Labels of at least ``min_length`` steps that overlap ``mask``."""
+    labels = _labels(labels)
+    keep = (find_object_lengths(labels, budget_bytes=budget_bytes) >= min_length) & (
+        _masks_hit(labels, [mask], budget_bytes))
+    return remap_labels(labels, keep, budget_bytes=budget_bytes)
+
+
+def filter_labels_by_multimask(labels, masks, budget_bytes=None):
+    """Labels that overlap every mask of the list ``masks``."""
+    labels = _labels(labels)
+    return remap_labels(labels, _masks_hit(labels, masks, budget_bytes),
+                        budget_bytes=budget_bytes)
+
+
+def filter_labels_by_length_and_multimask(labels, masks, min_length, budget_bytes=None):
+    """Labels of at least ``min_length`` steps that overlap every mask of
+    the list ``masks``."""
+    labels = _labels(labels)
+    hit = _masks_hit(labels, masks, budget_bytes)
+    keep = (find_object_lengths(labels, budget_bytes=budget_bytes) >= min_length) & hit
+    return remap_labels(labels, keep, budget_bytes=budget_bytes)
+
+
+# the reference keeps its in-place *_legacy variant with the same outputs
+filter_labels_by_length_and_multimask_legacy = filter_labels_by_length_and_multimask
+
+
+def get_stats_for_labels(labels, da, dim=None, dtype=None, budget_bytes=None):
+    """Mean, std, max and min of ``da`` over each label 1..max, NaN values
+    left out (NaN where a label has no value), as DataArrays named
+    ``{dim}_{da.name}_{stat}`` (``dim`` by default the labels' name before
+    ``_label``).  Sums accumulate in float64 on the labels' device
+    (:class:`SegmentChunks`, the std in a second pass about the mean); the
+    results are cast to ``dtype`` (``da``'s by default)."""
+    if not dim:
+        dim = labels.name.split("_label")[0]
+    if dtype is None:
+        dtype = da.dtype
+    name = getattr(da, "name", None)
+    long_name = da.attrs.get("long_name", name) if hasattr(da, "attrs") else name
+    units = da.attrs.get("units", "") if hasattr(da, "attrs") else ""
+    segs = SegmentChunks(_labels(labels), "label_statistics", budget_bytes)
+    field = as_tensor(da) if isinstance(da, DataArray) else torch.as_tensor(da)
+    nan = float("nan")
+    total = count = hi = lo = None
+    for s, e, seg in segs:
+        x = seg.gather(segs.take(field, s, e))
+        valid = ~torch.isnan(x)
+        parts = (seg.sum(x, valid), seg.sum(valid, dtype=torch.float64),
+                 seg.reduce(x, "amax", valid, empty=nan), seg.reduce(x, "amin", valid, empty=nan))
+        if total is None:
+            total, count, hi, lo = parts
+        else:
+            total, count = total + parts[0], count + parts[1]
+            hi, lo = torch.fmax(hi, parts[2]), torch.fmin(lo, parts[3])
+    if total is None:
+        stats = [torch.zeros(1, dtype=torch.float64)] * 4
+    else:
+        mean = total / count
+        ss = None
+        for s, e, seg in segs:
+            x = seg.gather(segs.take(field, s, e))
+            dev = x.double() - mean[seg.bins]
+            part = seg.sum(dev * dev, ~torch.isnan(x))
+            ss = part if ss is None else ss + part
+        stats = [mean, torch.sqrt(ss / count), hi, lo]
+    return tuple(
+        DataArray(values[1:].cpu().numpy().astype(dtype), dims=(dim,),
+                  name=f"{dim}_{name}_{stat}",
+                  attrs={"long_name": f"{stat} of {long_name} for each {dim}", "units": units})
+        for stat, values in zip(["mean", "std", "max", "min"], stats))
 
 
 def n_unique_along_axis(a, axis=0):

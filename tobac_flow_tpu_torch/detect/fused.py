@@ -127,21 +127,28 @@ def _channel_filter(field, direction, fwd, bwd, fill_iters=None):
     return _convolve_impl(either.to(torch.int32), fwd, bwd, _T_TAPS, "nearest", 0, any0, 0)
 
 
-def _growth_rate(field, fwd, bwd, dt):
+def _growth_rate(field, fwd, bwd, dt, method="cubic"):
     """Semi-Lagrangian difference per minute, averaged over the in-plane
-    cross (cubic warps)."""
-    diff = _convolve_impl(field, fwd, bwd, _T_TAPS, "cubic", math.nan, diff_func, math.nan)
-    return _convolve_impl(diff / dt, fwd, bwd, _S2D_TAPS, "cubic", math.nan, nanmean0,
+    cross (cubic warps unless ``method`` says otherwise)."""
+    diff = _convolve_impl(field, fwd, bwd, _T_TAPS, method, math.nan, diff_func, math.nan)
+    return _convolve_impl(diff / dt, fwd, bwd, _S2D_TAPS, method, math.nan, nanmean0,
                           math.nan)
 
 
-def _core_markers(bt, wvd, swd, fwd, bwd, dt, wvd_threshold, bt_threshold, use_wvd,
-                  fill_iters):
+def _combined_filter(bt, wvd, swd, fwd, bwd, use_wvd, fill_iters, divide=False):
+    """The combined cloud-top filter: BT's (and WVD's) curvature or peak
+    filter tracked ±1 frame, hole-filled and opened, times one less the
+    SWD linearised over 2.5-7.5 K (``divide``: see ``linearise_field``)."""
     combined = _channel_filter(bt, "positive", fwd, bwd, fill_iters) != 0
     if use_wvd:
         combined = combined | (_channel_filter(wvd, "negative", fwd, bwd, fill_iters) != 0)
     combined = _opening(_fill_holes_device(combined, _S2D_OFFS, fill_iters), _S2D_OFFS)
-    combined_filter = combined.to(torch.float32) * (1.0 - linearise_field(swd, 2.5, 7.5))
+    return combined.to(torch.float32) * (1.0 - linearise_field(swd, 2.5, 7.5, divide))
+
+
+def _core_markers(bt, wvd, swd, fwd, bwd, dt, wvd_threshold, bt_threshold, use_wvd,
+                  fill_iters):
+    combined_filter = _combined_filter(bt, wvd, swd, fwd, bwd, use_wvd, fill_iters)
     markers = (_growth_rate(-bt, fwd, bwd, dt) * combined_filter) > bt_threshold
     if use_wvd:
         markers = markers | (
@@ -171,17 +178,28 @@ def anvil_marker_mask(field, threshold, device=None, budget_bytes=None):
         device, budget_bytes, _dev.MARKER_MASK_BYTES_PER_PX, 0, 1)[0]
 
 
-def _anvil_pre(field, markers, fwd, bwd, lower, upper, erode_distance):
-    f = linearise_field(field, lower, upper)
-    eroded = markers * _binary_morph(markers != 0, _S2D_OFFS, 1, 0, "erode").to(torch.int32)
+def _watershed_mask(f, erode_distance):
+    """Where the field is ≤ 0 or NaN, eroded ``erode_distance`` times by
+    the 3×3×3 cube with the outside set, NaN pixels set again."""
     wh_nan = torch.isnan(f)
-    mask = _binary_morph((f <= 0) | wh_nan, _B3_OFFS, int(erode_distance), 1, "erode")
-    eroded = torch.where(mask | wh_nan, -1, eroded)
+    return _binary_morph((f <= 0) | wh_nan, _B3_OFFS, int(erode_distance), 1, "erode") | wh_nan
+
+
+def _edge_field(f, fwd, bwd):
+    """The uphill Sobel magnitude of the field (cubic warps), +1 where
+    positive, less the field, +inf at NaN."""
     edges = _convolve_impl(f, fwd, bwd, _FULL_TAPS, "cubic", math.nan,
                            lambda taps: sobel_magnitude(taps, taps[13], "uphill"), math.nan)
     edges = edges + (edges > 0).to(edges.dtype)
     edges = edges - f
-    return torch.where(wh_nan, math.inf, edges), eroded
+    return torch.where(torch.isnan(f), math.inf, edges)
+
+
+def _anvil_pre(field, markers, fwd, bwd, lower, upper, erode_distance):
+    f = linearise_field(field, lower, upper)
+    eroded = markers * _binary_morph(markers != 0, _S2D_OFFS, 1, 0, "erode").to(torch.int32)
+    eroded = torch.where(_watershed_mask(f, erode_distance), -1, eroded)
+    return _edge_field(f, fwd, bwd), eroded
 
 
 def anvil_pre_watershed(field, markers, fwd, bwd, lower, upper, erode_distance,

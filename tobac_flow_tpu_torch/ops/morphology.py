@@ -1,14 +1,16 @@
 """Binary and greyscale morphology as stencil min/max ops (counterpart of
-the parts of ``tobac_flow_tpu/ops/morphology.py`` the detection chain
-uses).
+``tobac_flow_tpu/ops/morphology.py``).
 
 Semantics follow scipy as the reference does: the structure is anchored
 at its centre, ``border_value`` is what lies outside the array,
 ``iterations`` repeats the base operation.  Every op runs on its input's
 device over the whole volume.  ``distance_transform_edt`` is the exact
 Euclidean distance transform that validation and subsegmentation use;
-``grey_dilation`` and ``peak_local_max_mask`` work frame by frame over the
-last two axes of a stack.
+a greyscale ``size`` with fewer entries than the data has axes spans the
+last axes (so ``grey_dilation(frames, (h, w))`` and
+``peak_local_max_mask`` work frame by frame over a stack).  The Gaussian
+is the reference's compiled separable correlation with scipy's reflect
+borders and float32 taps.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 from tobac_flow_tpu_torch.ops.warp import fma, shift_axis
 
 __all__ = [
-    "binary_erosion", "binary_dilation", "binary_opening", "distance_transform_edt",
-    "grey_dilation", "peak_local_max_mask",
+    "binary_erosion", "binary_dilation", "binary_opening", "binary_closing",
+    "binary_fill_holes", "grey_erosion", "grey_dilation", "grey_opening", "gaussian_filter",
+    "nan_gaussian_filter", "maximum_filter", "minimum_filter", "peak_local_max_mask",
+    "distance_transform_edt",
 ]
 
 _FLOOD_CHECK = 8  # flood iterations between convergence checks
@@ -85,6 +89,12 @@ def binary_opening(mask, structure=None, iterations=1):
     return _binary_morph(out, offs, iterations, 0, "dilate")
 
 
+def binary_closing(mask, structure=None, iterations=1):
+    mask, offs = _prep(mask, structure, 1)
+    out = _binary_morph(mask, offs, iterations, 0, "dilate")
+    return _binary_morph(out, offs, iterations, 0, "erode")
+
+
 def _flood(inv, seed, offsets, max_iters):
     """Grow ``seed`` through ``inv`` along the structure's moves, one step
     per iteration, until a step changes nothing or ``max_iters`` steps have
@@ -122,6 +132,14 @@ def _fill_holes_device(mask, offsets, max_iters):
     return filled[(slice(1, -1),) * mask.dim()]
 
 
+def binary_fill_holes(mask, structure=None):
+    """Fill the holes not connected to the array's border (scipy's
+    semantics; the flood capped at the sum of the sides plus 8 steps, as
+    in the reference)."""
+    mask, offs = _prep(mask, structure, 1)
+    return _fill_holes_device(mask, offs, int(sum(mask.shape)) + 8)
+
+
 def _grey_morph(data, offsets, mode):
     """Moving minimum (``data[p + o]``, +inf outside) or maximum
     (``data[p - o]``, -inf outside) over the structure's offsets."""
@@ -135,17 +153,58 @@ def _grey_morph(data, offsets, mode):
     return out
 
 
-def grey_dilation(data, size):
-    """Moving maximum of float32 ``data`` (..., H, W) over a ``size``
-    (h, w) window about each pixel of each frame, -inf outside the frame:
-    the window's rows, then its columns (a maximum is exact in any
-    order)."""
+def _box_axes(ndim, size):
+    """Per axis, the offsets of a ``size`` box (scalar: every axis; fewer
+    entries than ``ndim``: the last axes), each as a 1-D structure."""
+    if np.isscalar(size):
+        size = (int(size),) * ndim
+    size = (1,) * (ndim - len(size)) + tuple(int(s) for s in size)
+    axes = []
+    for axis, n in enumerate(size):
+        offs = []
+        for o in range(-(n // 2), n - n // 2):
+            off = [0] * ndim
+            off[axis] = o
+            offs.append(tuple(off))
+        axes.append(tuple(offs))
+    return axes
+
+
+def _grey(data, size, footprint, mode):
+    """Moving minimum or maximum of float32 ``data`` over a ``footprint``
+    (nonzero cells about its centre) or a ``size`` box (one axis after the
+    other: a box's extremum is exact in any order); the reference's
+    connectivity-1 cross where neither is given."""
     data = torch.as_tensor(data).to(torch.float32)
-    lead = (0,) * (data.dim() - 2)
-    hy, hx = size
-    rows = tuple(lead + (dy, 0) for dy in range(-(hy // 2), hy - hy // 2))
-    cols = tuple(lead + (0, dx) for dx in range(-(hx // 2), hx - hx // 2))
-    return _grey_morph(_grey_morph(data, rows, "max"), cols, "max")
+    if footprint is not None:
+        return _grey_morph(data, _structure_offsets(np.asarray(footprint) != 0, data.dim()),
+                           mode)
+    if size is None:
+        grid = np.abs(np.indices((3,) * data.dim()) - 1).sum(axis=0)
+        return _grey_morph(data, _structure_offsets(grid <= 1, data.dim()), mode)
+    for offs in _box_axes(data.dim(), size):
+        data = _grey_morph(data, offs, mode)
+    return data
+
+
+def grey_erosion(data, size=None, footprint=None):
+    return _grey(data, size, footprint, "min")
+
+
+def grey_dilation(data, size=None, footprint=None):
+    return _grey(data, size, footprint, "max")
+
+
+def grey_opening(data, size=None, footprint=None):
+    return grey_dilation(grey_erosion(data, size, footprint), size, footprint)
+
+
+def maximum_filter(data, size):
+    return grey_dilation(data, size=size)
+
+
+def minimum_filter(data, size):
+    return grey_erosion(data, size=size)
 
 
 def peak_local_max_mask(frames, min_distance=10, threshold_abs=0.0):
@@ -198,6 +257,29 @@ def _sepconv_reflect(data, kernels):
             out = fma(k[i], padded.narrow(axis, i, n), out)
         data = out
     return data
+
+
+def gaussian_filter(data, sigma, truncate=4.0):
+    """Separable Gaussian of float32 ``data`` with scipy's reflect borders
+    and kernel radius (``sigma`` a scalar or one per axis; 0 skips an
+    axis)."""
+    data = torch.as_tensor(data).to(torch.float32)
+    if np.isscalar(sigma):
+        sigma = (sigma,) * data.dim()
+    return _sepconv_reflect(data, tuple(
+        (axis, None if s <= 0 else _gauss_kernel(s, truncate)) for axis, s in enumerate(sigma)))
+
+
+def nan_gaussian_filter(a, sigma, propagate_nan=True, truncate=4.0):
+    """Normalised-convolution Gaussian that ignores NaNs: the Gaussian of
+    the field with NaN as 0 over the Gaussian of its valid mask (NaN where
+    that is 0), NaN again at NaN input where ``propagate_nan``."""
+    a = torch.as_tensor(a).to(torch.float32)
+    nan = torch.isnan(a)
+    ag = gaussian_filter(torch.where(nan, 0.0, a), sigma, truncate)
+    cg = gaussian_filter((~nan).to(torch.float32), sigma, truncate)
+    res = ag / torch.where(cg == 0, torch.nan, cg)
+    return torch.where(nan, torch.nan, res) if propagate_nan else res
 
 
 _EDT_BIG = 1e30  # the reference's cap on missing distances, before and after squaring

@@ -106,23 +106,14 @@ def _present_shifts(disps, radius):
     return [[int(s) - radius for s in np.flatnonzero(row)] for row in present]
 
 
-def _banded_scatter_min(cost, cost2, meta, disp_y, disp_x, radius):
-    """Each source p pushes (cost, cost2, meta) to p + (disp_y, disp_x)(p);
-    colliding pushes keep the lexicographic minimum.  A y pass over the
-    shifts -R..R (in that order) keeps two lanes per intermediate cell: the
-    best push, and the best push whose x displacement differs from it; an x
-    pass then lands both lanes.  Pushes outside the band are dropped, never
-    clipped.  A shift that no claimed source (meta below META_MAX) takes
-    leaves both lanes as they are, and a lane's x shift that none of its
-    claimed entries takes leaves the output as it is, so both passes visit
-    only the shifts taken."""
+def _scatter_min_dense(cost, cost2, meta, dy, dx, radius, y_shifts):
+    """The scatter-min over whole volumes: each taken y shift's pushes
+    masked, shifted and folded into both lanes at every cell, then each
+    lane's taken x shifts landed likewise."""
     dev = cost.device
     inf = torch.tensor(math.inf, device=dev)
     big_m = torch.tensor(META_MAX, dtype=torch.int32, device=dev)
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    dy = disp_y.to(torch.int32)
-    dx = disp_x.to(torch.int32)
-    (y_shifts,) = _present_shifts([(dy, meta != META_MAX)], radius)
     lane0 = (
         torch.full_like(cost, math.inf), torch.full_like(cost, math.inf),
         torch.full_like(meta, META_MAX), torch.zeros_like(dx),
@@ -163,6 +154,210 @@ def _banded_scatter_min(cost, cost2, meta, disp_y, disp_x, radius):
             better = lex_better(cc, cc2, cm, *out)
             out = _where4(better, (cc, cc2, cm), out)
     return out
+
+
+def _shift_keys(disp, live, radius):
+    """Each pixel's displacement as a bin 0..2R (2R + 1 past the band), and
+    the shifts that some ``live`` pixel takes, ascending (one transfer to
+    the host)."""
+    n = 2 * radius + 1
+    key = torch.where(disp.abs() <= radius, disp + radius, n).reshape(-1)
+    counts = torch.bincount(torch.where(live.reshape(-1), key, n), minlength=n + 1)[:n]
+    return key, [int(k) - radius for k in np.flatnonzero(counts.cpu().numpy())]
+
+
+def _waves(tgt, order_key, n_keys):
+    """The entries grouped into waves: wave k holds each target's k-th
+    entry in ``order_key`` order (so a wave never holds a target twice),
+    by two sorts and one transfer to the host."""
+    order = torch.argsort(tgt * n_keys + order_key)
+    t_sorted = tgt[order]
+    pos = torch.arange(t_sorted.numel(), device=tgt.device)
+    first = torch.ones_like(t_sorted, dtype=torch.bool)
+    first[1:] = t_sorted[1:] != t_sorted[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    counts = torch.bincount(rank).cpu().numpy() if rank.numel() else np.zeros(0, np.int64)
+    order = order[torch.argsort(rank, stable=True)]
+    ends = np.cumsum(counts)
+    return [order[e - c:e] for c, e in zip(counts, ends)]
+
+
+def _lex_rows(a, b):
+    """``lex_better`` of (n, 3+) int32 rows holding (claim, claim2) as
+    float32 bits and meta."""
+    f32 = torch.float32
+    return lex_better(a[:, 0].view(f32), a[:, 1].view(f32), a[:, 2],
+                      b[:, 0].view(f32), b[:, 1].view(f32), b[:, 2])
+
+
+def _scatter_min_waves(cost, cost2, meta, dy, dx, radius, keyed):
+    """The scatter-min folding each cell's pushes in their order, wave by
+    wave: wave k carries every cell's k-th push (by shift in the y pass;
+    by shift, lane A first, in the x pass), so each wave touches only the
+    cells it reaches and each cell once.  A cell that no push of a shift
+    reaches keeps its lanes (an empty push never ranks first, and lane B
+    never holds lane A's x displacement), so the result is the dense
+    fold's, bit for bit.  A lane is one (cells, 4) int32 tensor of
+    (claim, claim2) as float32 bits, meta and x displacement, so that a
+    push's fold gathers and writes a row at once."""
+    shape = cost.shape
+    h, w = shape[-2], shape[-1]
+    n_keys = 2 * radius + 1
+    dev = cost.device
+    i32 = torch.int32
+    src = torch.stack([cost.reshape(-1).view(i32), cost2.reshape(-1).view(i32),
+                       meta.reshape(-1), dx.reshape(-1)], 1)
+    inf_bits = int(torch.tensor(math.inf).view(i32))
+    empty = torch.tensor([inf_bits, inf_bits, META_MAX, 0], dtype=i32, device=dev)
+    key, taken = keyed
+    taken_key = torch.zeros(n_keys + 1, dtype=torch.bool, device=dev)
+    taken_key[torch.tensor([t + radius for t in taken], dtype=torch.long, device=dev)] = True
+    shift = key.long() - radius
+    idx = torch.arange(key.numel(), device=dev)
+    row = (idx // w) % h + shift
+    (ok,) = torch.nonzero(taken_key[key] & (row >= 0) & (row < h), as_tuple=True)
+    idx, s = idx[ok], shift[ok]
+    tgt = idx + s * w
+    lane_a = empty.repeat(cost.numel(), 1)
+    lane_b = lane_a.clone()
+    for wave in _waves(tgt, s + radius, n_keys):
+        t = tgt[wave]
+        cand = src.index_select(0, idx[wave])
+        la, lb = lane_a.index_select(0, t), lane_b.index_select(0, t)
+        cand_first = _lex_rows(cand, la)[:, None]
+        top = torch.where(cand_first, cand, la)
+        # the displaced runner-up: whichever of {candidate, lane A} lost
+        oth = torch.where(cand_first, la, cand)
+        o_ok = (oth[:, 2] != META_MAX) & (oth[:, 3] != top[:, 3])
+        b_ok = (lb[:, 2] != META_MAX) & (lb[:, 3] != top[:, 3])
+        pick_o = o_ok & (~b_ok | _lex_rows(oth, lb))
+        lane_b.index_copy_(0, t, torch.where(pick_o[:, None], oth,
+                                             torch.where(b_ok[:, None], lb, empty)))
+        lane_a.index_copy_(0, t, top)
+
+    out = empty[:3].repeat(cost.numel(), 1)
+    both = torch.cat([lane_a, lane_b])  # lane A's rows first: first in a shift's order
+    cell = torch.arange(both.shape[0], device=dev) % cost.numel()
+    col = cell % w + both[:, 3]
+    (ok,) = torch.nonzero((both[:, 2] != META_MAX) & (both[:, 3].abs() <= radius)
+                          & (col >= 0) & (col < w), as_tuple=True)
+    tgt = cell[ok] + both[ok, 3]
+    for wave in _waves(tgt, both[ok, 3].long() + radius, n_keys):
+        t = tgt[wave]
+        cand = both.index_select(0, ok[wave])[:, :3]
+        cur = out.index_select(0, t)
+        out.index_copy_(0, t, torch.where(_lex_rows(cand, cur)[:, None], cand, cur))
+    return (out[:, 0].contiguous().view(torch.float32).view(shape),
+            out[:, 1].contiguous().view(torch.float32).view(shape),
+            out[:, 2].contiguous().view(shape))
+
+
+def _by_shift(key, taken, radius):
+    """The flat indices of the pixels of each taken shift (a dict shift ->
+    indices, ``key`` and ``taken`` from ``_shift_keys``), grouped by one
+    stable sort and one transfer to the host."""
+    counts = torch.bincount(key, minlength=2 * radius + 2).cpu().numpy()
+    order = torch.argsort(key, stable=True)
+    ends = np.cumsum(counts)
+    return {t: order[ends[t + radius] - counts[t + radius]:ends[t + radius]] for t in taken}
+
+
+def _scatter_min_shifts(cost, cost2, meta, dy, dx, radius, keyed):
+    """The scatter-min visiting, shift by shift, only the cells that a push
+    reaches (see ``_scatter_min_waves`` for why that is the dense fold, bit
+    for bit).  A push that leaves the frame lands in a spare row past the
+    volume, which is never read back.  Lanes as in ``_scatter_min_waves``."""
+    shape = cost.shape
+    h, w = shape[-2], shape[-1]
+    n = cost.numel()  # the spare row
+    dev = cost.device
+    i32 = torch.int32
+    src = torch.stack([cost.reshape(-1).view(i32), cost2.reshape(-1).view(i32),
+                       meta.reshape(-1), dx.reshape(-1)], 1)
+    inf_bits = int(torch.tensor(math.inf).view(i32))
+    empty = torch.tensor([inf_bits, inf_bits, META_MAX, 0], dtype=i32, device=dev)
+    spare = torch.tensor(n, dtype=torch.int64, device=dev)
+    lane_a = empty.repeat(n + 1, 1)
+    lane_b = lane_a.clone()
+    for s, idx in _by_shift(keyed[0], keyed[1], radius).items():
+        row = (idx // w) % h + s
+        tgt = torch.where((row >= 0) & (row < h), idx + s * w, spare)
+        cand = src.index_select(0, idx)
+        la, lb = lane_a.index_select(0, tgt), lane_b.index_select(0, tgt)
+        cand_first = _lex_rows(cand, la)[:, None]
+        top = torch.where(cand_first, cand, la)
+        # the displaced runner-up: whichever of {candidate, lane A} lost
+        oth = torch.where(cand_first, la, cand)
+        o_ok = (oth[:, 2] != META_MAX) & (oth[:, 3] != top[:, 3])
+        b_ok = (lb[:, 2] != META_MAX) & (lb[:, 3] != top[:, 3])
+        pick_o = o_ok & (~b_ok | _lex_rows(oth, lb))
+        # the spare row may take several writes; it is never read back
+        lane_b.index_copy_(0, tgt, torch.where(pick_o[:, None], oth,
+                                               torch.where(b_ok[:, None], lb, empty)))
+        lane_a.index_copy_(0, tgt, top)
+
+    out = empty[:3].repeat(n + 1, 1)
+    both = (lane_a[:n], lane_b[:n])
+    groups = [_by_shift(*_shift_keys(lane[:, 3], lane[:, 2] != META_MAX, radius), radius)
+              for lane in both]
+    for s in range(-radius, radius + 1):
+        for lane, group in zip(both, groups):
+            if s not in group:
+                continue
+            idx = group[s]
+            col = idx % w + s
+            cand = lane.index_select(0, idx)[:, :3]
+            tgt = torch.where((cand[:, 2] != META_MAX) & (col >= 0) & (col < w), idx + s, spare)
+            cur = out.index_select(0, tgt)
+            better = _lex_rows(cand, cur) & (tgt != n)
+            out.index_copy_(0, tgt, torch.where(better[:, None], cand, cur))
+    out = out[:n]
+    return (out[:, 0].contiguous().view(torch.float32).view(shape),
+            out[:, 1].contiguous().view(torch.float32).view(shape),
+            out[:, 2].contiguous().view(shape))
+
+
+# The forms' costs on an H100 80GB HBM3 (700 W), fitted to the times of
+# tools/torch_scatter_min_forms.py on a 1500x2500 frame and a 6-frame
+# volume: dense about 0.5 ms a taken y shift and million cells; shift by
+# shift about 3.5 ms a million cells and 2.5 ms a taken shift (its
+# launches); in waves about 9 ms a million cells (its sorts) and 4 ms.
+# So a frame with many taken shifts (noise flows) goes in waves, a volume
+# with many shift by shift, and few shifts dense.
+_DENSE_MS_PER_SHIFT_MPX = 0.5
+_SHIFTS_MS_PER_MPX, _SHIFTS_MS_PER_SHIFT = 3.5, 2.5
+_WAVES_MS_PER_MPX, _WAVES_MS = 9.0, 4.0
+
+
+def _scatter_min_costs(n_shifts, cells):
+    """The three forms' estimated milliseconds for ``n_shifts`` taken y
+    shifts over ``cells`` cells: (dense, shift by shift, waves)."""
+    mpx = cells / 1e6
+    return (n_shifts * mpx * _DENSE_MS_PER_SHIFT_MPX,
+            mpx * _SHIFTS_MS_PER_MPX + n_shifts * _SHIFTS_MS_PER_SHIFT,
+            mpx * _WAVES_MS_PER_MPX + _WAVES_MS)
+
+
+def _banded_scatter_min(cost, cost2, meta, disp_y, disp_x, radius):
+    """Each source p pushes (cost, cost2, meta) to p + (disp_y, disp_x)(p);
+    colliding pushes keep the lexicographic minimum.  A y pass over the
+    shifts -R..R (in that order) keeps two lanes per intermediate cell: the
+    best push, and the best push whose x displacement differs from it; an x
+    pass then lands both lanes.  Pushes outside the band are dropped, never
+    clipped.  A shift that no claimed source (meta below META_MAX) takes
+    leaves both lanes as they are, and a lane's x shift that none of its
+    claimed entries takes leaves the output as it is, so both passes visit
+    only the shifts taken.  Three forms give the same bits; the cheapest
+    for the volume's size and taken shifts runs (see the costs above)."""
+    dy = disp_y.to(torch.int32)
+    dx = disp_x.to(torch.int32)
+    keyed = _shift_keys(dy, meta != META_MAX, radius)
+    costs = _scatter_min_costs(len(keyed[1]), cost.numel())
+    form = costs.index(min(costs))
+    if form == 0:
+        return _scatter_min_dense(cost, cost2, meta, dy, dx, radius, keyed[1])
+    return (_scatter_min_shifts, _scatter_min_waves)[form - 1](cost, cost2, meta, dy, dx,
+                                                               radius, keyed)
 
 
 def _shift_t(a, dt, fill):

@@ -50,18 +50,22 @@ def to_8bit(array, vmin=None, vmax=None, fill_value=127):
     return out.astype(np.uint8)
 
 
-def linearise_field(field, lower_threshold, upper_threshold):
+def linearise_field(field, lower_threshold, upper_threshold, divide=False):
     """Clamp-rescale a field (array or tensor) to [0, 1] between two
     thresholds; thresholds passed high-to-low invert the result.  The
     division by the threshold span is a multiply by its float32
-    reciprocal, as the reference's compiled programs fold it."""
+    reciprocal, as the reference's compiled programs fold it, or with
+    ``divide`` a division, as its numpy steps take it."""
     if lower_threshold == upper_threshold:
         raise ValueError("lower and upper thresholds must have different values")
     invert = lower_threshold > upper_threshold
     if invert:
         lower_threshold, upper_threshold = upper_threshold, lower_threshold
-    inverse = float(np.float32(1.0) / np.float32(upper_threshold - lower_threshold))
-    scaled = (field - lower_threshold) * inverse
+    if divide:
+        scaled = (field - lower_threshold) / (upper_threshold - lower_threshold)
+    else:
+        inverse = float(np.float32(1.0) / np.float32(upper_threshold - lower_threshold))
+        scaled = (field - lower_threshold) * inverse
     if isinstance(scaled, torch.Tensor):
         clipped = scaled.clamp(0.0, 1.0)
     else:

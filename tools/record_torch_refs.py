@@ -6,8 +6,8 @@ against, where the JAX side takes more than a few seconds to run live
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_torch_refs.py [NAME ...]
 
 NAME is any of ``flow_qc``, ``detect_chain``, ``flow_models``,
-``subsegment``, ``configured_chain`` and ``fused_scene`` (all by
-default); each writes
+``subsegment``, ``configured_chain``, ``fused_scene`` and ``legacy``
+(all by default); each writes
 ``tests/data/NAME.npz``.  The scenes and settings are
 defined here and imported by the tests, so that a test reads exactly what
 was recorded for it.
@@ -325,6 +325,106 @@ def record_fused_scene():
     return out
 
 
+# -- the op-by-op filters and the legacy path (tests/test_torch_legacy.py) ----
+
+LEGACY_CROP = (slice(0, 6), slice(20, 44), slice(30, 66))  # the floods' cut of the chain scene
+LEGACY_CLI_SHAPE = (8, 48, 64)  # the legacy CLI's synthetic scene
+LEGACY_MAX_ITER = 6  # flow_network_watershed's max_iter: 24 rounds
+
+
+def legacy_inputs():
+    """The chain scene, its recorded JAX flows (``detect_chain.npz``) and a
+    digest of both, which ``legacy.npz`` keeps to name its inputs."""
+    bt, wvd, swd, times = chain_scene()
+    ref = np.load(DATA / "detect_chain.npz")
+    fwd, bwd = ref["fwd"], ref["bwd"]
+    return bt, wvd, swd, times, fwd, bwd, scene_digest(bt, wvd, swd, fwd, bwd)
+
+
+def record_legacy():
+    """On the chain scene given its recorded flows: each op-by-op filter of
+    ``detect/detection.py``, the growth markers (WVD alone and
+    multichannel); on its crop ``LEGACY_CROP``: ``detect_anvils`` with
+    ``markers=None``, ``edge_watershed`` from the multichannel markers and
+    the legacy module's functions; and the legacy CLI at
+    ``LEGACY_CLI_SHAPE``: its flows, markers and labels as its file holds
+    them."""
+    import tempfile
+
+    from tobac_flow_tpu import legacy
+    from tobac_flow_tpu.cli import dcc_detect_legacy as jcli
+    from tobac_flow_tpu.core.flow import Flow
+    from tobac_flow_tpu.data.ncdataset import open_dataset
+    from tobac_flow_tpu.detect import detection as jd
+    from tobac_flow_tpu.ops.convolve import set_plan_frame_k
+    from tools.parity_detect import _da
+
+    bt, wvd, swd, _, fwd, bwd, digest = legacy_inputs()
+    flow = Flow(fwd, bwd)
+    B, W, S = _da(bt, "bt"), _da(wvd, "wvd"), _da(swd, "swd")
+    f = wvd - swd
+    out = {"digest": np.array(digest)}
+    for name, fld, direction in (("bt", bt, "positive"), ("wvd", wvd, "negative"),
+                                 ("bt_neg", bt, "negative")):
+        out[f"curv_{name}"] = jd.get_curvature_filter(fld, direction=direction)
+        out[f"peak_{name}"] = jd.get_peak_filter(fld, sigma=0.5, direction=direction)
+    out["growth_cubic"] = jd.get_growth_rate(flow, -B, method="cubic")
+    out["growth_linear"] = jd.get_growth_rate(flow, W)
+    out["combined"] = jd.get_combined_filters(flow, B, W, S)
+    out["combined_bt"] = jd.get_combined_filters(flow, B, W, S, use_wvd=False)
+    out["ws_mask"] = jd.get_watershed_mask(f, 2)
+    out["edges"] = jd.get_combined_edge_field(flow, f)
+    out["tdiff"] = jd.filtered_tdiff(flow, f)
+    out["nan_gauss"] = jd.nan_gaussian_filter(np.where(wvd > 0, np.nan, wvd), (0, 1.5, 2))
+    out["gm_smoothed"], out["gm_labels"] = jd.detect_growth_markers(flow, W)
+    out["gmm_wvd"], out["gmm_bt"], out["gmm_labels"] = jd.detect_growth_markers_multichannel(
+        flow, W, B)
+    assert np.asarray(out["gm_labels"]).max() > 0 and np.asarray(out["gmm_labels"]).max() > 0
+
+    c = LEGACY_CROP
+    crop = Flow(fwd[c], bwd[c])
+    out["anvils_none"] = jd.detect_anvils(crop, _da(f[c], "f"), markers=None).values
+    markers = np.asarray(out["gmm_labels"])[c]
+    out["edge_ws"] = jd.edge_watershed(crop, f[c], markers, -5, -15)
+    edges = np.asarray(crop.sobel(np.clip(f[c], -15, -5), method="nearest"))
+    mask = f[c] > -12
+    out["network_ws"] = legacy.flow_network_watershed(edges, markers, fwd[c], bwd[c], mask=mask,
+                                                      max_iter=LEGACY_MAX_ITER)
+    out["legacy_label"] = legacy.flow_label(mask, fwd[c], bwd[c], overlap=0.5)
+    out["legacy_convolve"] = legacy.flow_convolve_nearest(markers, fwd[c], bwd[c])
+    # the linear warp's band plan loses each frame's pixel (0, 0) (ROADMAP.md
+    # section 3), which the port does not inherit: its exact warp, plan off
+    prev = set_plan_frame_k(0)
+    try:
+        out["legacy_sobel"] = np.asarray(
+            legacy.flow_sobel(f[c], fwd[c], bwd[c], direction="uphill"))
+    finally:
+        set_plan_frame_k(prev)
+    assert np.asarray(out["edge_ws"]).max() > 0 and np.asarray(out["anvils_none"]).max() > 0
+
+    captured = {}
+
+    def create_flow(*args, **kwargs):
+        captured["flow"] = jcli_create_flow(*args, **kwargs)
+        return captured["flow"]
+
+    jcli_create_flow = jcli.create_flow
+    jcli.create_flow = create_flow
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t, y, x = LEGACY_CLI_SHAPE
+            ds = open_dataset(jcli.main(["-sd", tmp, "-t", str(t), "-y", str(y), "-x", str(x)]))
+            for var in ("growth_markers", "watershed_label"):
+                out[f"cli_{var}"] = np.asarray(ds[var].values)
+                out[f"cli_{var}_long_name"] = np.array(ds[var].attrs["long_name"])
+    finally:
+        jcli.create_flow = jcli_create_flow
+    out["cli_fwd"] = np.asarray(captured["flow"].forward_flow)
+    out["cli_bwd"] = np.asarray(captured["flow"].backward_flow)
+    assert out["cli_growth_markers"].max() > 0 and out["cli_watershed_label"].max() > 0
+    return {k: np.asarray(getattr(v, "values", v)) for k, v in out.items()}
+
+
 RECORDS = {
     "flow_qc": record_flow_qc,
     "detect_chain": record_detect_chain,
@@ -332,6 +432,7 @@ RECORDS = {
     "subsegment": record_subsegment,
     "configured_chain": record_configured_chain,
     "fused_scene": record_fused_scene,
+    "legacy": record_legacy,
 }
 
 
