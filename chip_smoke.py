@@ -143,6 +143,26 @@
    projected on the host beside the small checks, 2.1e7 gates) binned on
    the card into the 2D composite and the 20-level 3D histogram, a cut of
    the 3D histogram held to the CPU's beside the last kernel timings.
+16. The sharded chain (``parallel.pipeline.sharded_detect_all``, its floods'
+   in-plane sweeps through the kernel) on a (2, 2) mesh of ranks that
+   ``parallel.launch.launch`` starts; on one card the four ranks share it
+   over gloo (card tensors staged through pinned host memory), on four
+   cards each has its own over NCCL (``check_sharded``).  (a) At (8, 64,
+   96) given the single card's flows: the card's ranks against four gloo
+   ranks on the CPU, identical outputs, ``sharded_flow_label`` included;
+   against the single card's chain, markers bit-equal, core labels its
+   partition, anvil marker labels exact, thick and thin anvils agreeing on
+   at least 99 % of their pixels; the same on a (1, 1) mesh on card 0 over
+   NCCL.  (b) At the GOES job's frame, ``deep_scene`` (8, 1500, 2500),
+   given the single card's flows (the kernels line's
+   ``sharded_detect_all``) and computing its own (``..._own_flow``), the
+   floods at the reference's default cap of 8 rounds (4 computing its own
+   flows, for the script's time): each rank's seconds by part, rounds,
+   exchanges, peak memory against its budget and kernel launches; the
+   markers, core labels and anvil markers held to the single card's.
+   Converged, those floods take minutes on one card, so they run to
+   convergence on an 8x640x640 crop of (b)'s scene and flows, held to the
+   single card's chain there by (a)'s bars.
 
 The script's own host work runs beside its checks and kernel timings,
 never beside a main path whose seconds it logs: the CPU sides of the
@@ -183,6 +203,7 @@ import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from datetime import datetime, timedelta
@@ -569,13 +590,19 @@ def profile_run(run, stages, card_line, what):
     """One call of ``run`` under torch.profiler, recording device activity
     alone.  ``run`` returns the ``stats`` dict of the path it drives, whose
     ``{stage}_span_ns`` are the stages' spans on the host's Unix clock, the
-    profiler's.  For each stage, the device operations (kernels, copies,
-    fills) that start in its span, the union of their intervals and the
-    share of the stage's wall time the device spent idle; the device ops
-    with the most time, by name; and the sweep kernel's launches and
-    device ms.  Raises if a stage saw no device op or the stages together
-    saw under 99 % of the run's (the two clocks would disagree).  Returns
-    (the sweep kernel's device ms in the run, its launches)."""
+    profiler's.  Each device operation (kernel, copy, fill) belongs to the
+    stage whose span holds its launch: the host's runtime call that shares
+    its correlation id.  (The device's own timestamps are not used for
+    that: on a later profiling cycle in one process they put ops outside
+    the span of the stage that launched them, ``tools/torch_profile_probe.py``
+    shows it.)  For each
+    stage, its device ops, the union of their intervals and the share of
+    the stage's wall time the device spent idle, and how many of its ops
+    the device's clock puts outside its span; the device ops with the most
+    time, by name; and the sweep kernel's launches and device ms.  Raises
+    if a stage launched no device op, or the stages together launched
+    under 99 % of the run's.  Returns (the sweep kernel's device ms in the
+    run, its launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -589,30 +616,39 @@ def profile_run(run, stages, card_line, what):
         t_run = time.perf_counter()
     t_stop = time.perf_counter()
     counted = ws_sweeps.spatial_sweeps.launches
-    # the raw events (µs), without building the profiler's event tree
-    ops = []
+    # the raw events (µs), without building the profiler's event tree: the
+    # device's ops, and the host's runtime calls (cudaLaunchKernel,
+    # cudaMemcpyAsync, ...) by correlation id
+    ops, calls = [], {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
             start = e.start_ns() / 1e3
-            ops.append((start, start + e.duration_ns() / 1e3, e.name()))
-    ops.sort()
-    starts = [s for s, _, _ in ops]
+            ops.append((e.correlation_id(), start, start + e.duration_ns() / 1e3, e.name()))
+        elif e.device_type() == DeviceType.CPU and e.name().startswith("cu"):
+            calls.setdefault(e.correlation_id(), e.start_ns() / 1e3)
+    launched = [calls.get(c, -math.inf) for c, _, _, _ in ops]
+    order = sorted(range(len(ops)), key=launched.__getitem__)
+    launched = [launched[i] for i in order]
+    ops = [ops[i][1:] for i in order]
     in_stages = 0
     for name in stages:
         lo, hi = (t / 1e3 for t in stats[f"{name}_span_ns"])
-        mine = ops[bisect.bisect_left(starts, lo):bisect.bisect_right(starts, hi)]
+        first, last = bisect.bisect_left(launched, lo), bisect.bisect_right(launched, hi)
+        mine = ops[first:last]
         if not mine:
-            raise AssertionError(f"profile of {what}: no device op started inside the host "
-                                 f"span of stage.{name}")
+            raise AssertionError(f"profile of {what}: no device op was launched inside the "
+                                 f"host span of stage.{name}")
         in_stages += len(mine)
         busy = union_ms([(s, e) for s, e, _ in mine])
         wall = (hi - lo) / 1e3
+        skewed = sum(1 for s, _, _ in mine if not lo <= s <= hi)
         log(f"profile of {what}, stage.{name}: wall {wall / 1e3:.3f} s, device busy "
             f"{busy / 1e3:.3f} s, {len(mine)} device ops, idle "
-            f"{100 * (1 - busy / wall):.1f} % [{card_line}]")
+            f"{100 * (1 - busy / wall):.1f} %; the device's clock puts {skewed} of its ops "
+            f"outside its span [{card_line}]")
     if in_stages < 0.99 * len(ops):
-        raise AssertionError(f"profile of {what}: the stages' host spans hold {in_stages} of "
-                             f"the run's {len(ops)} device ops")
+        raise AssertionError(f"profile of {what}: {in_stages} of the run's {len(ops)} "
+                             f"device ops were launched inside the stages' host spans")
     by_name = {}
     for s, e, n in ops:
         total, count = by_name.get(n, (0.0, 0))
@@ -625,8 +661,8 @@ def profile_run(run, stages, card_line, what):
     if len(sweeps) != counted:
         raise AssertionError(f"profile: {len(sweeps)} sweep kernels ran, the wrapper "
                              f"counted {counted} launches")
-    log(f"profile of {what}: {len(ops)} device ops in the run, {in_stages} inside the "
-        f"stages; the sweep kernel {len(sweeps)} launches, {ms:.3f} ms of device time; "
+    log(f"profile of {what}: {len(ops)} device ops in the run, {in_stages} launched inside "
+        f"the stages; the sweep kernel {len(sweeps)} launches, {ms:.3f} ms of device time; "
         f"profiled run {t_run - t0:.1f} s, the profiler's stop {t_stop - t_run:.1f} s, "
         f"the analysis {time.perf_counter() - t_stop:.1f} s [{card_line}]")
     return ms, len(sweeps)
@@ -1225,7 +1261,7 @@ def radar_volume(site, seed, cuts=RADAR_CUTS, radials=RADAR_RADIALS, gates=RADAR
 
 LEGACY_SMALL = (9, 96, 128)  # the legacy CLI's synthetic scene for the card-against-CPU check
 LEGACY_FLOOD_CUT = (slice(0, 6), slice(24, 72), slice(32, 96))  # where (a) floods the others
-LEGACY_FRAMES = 6  # the GOES scene's frames that the legacy path runs at full width
+LEGACY_FRAMES = 4  # the GOES scene's frames that the legacy path runs at full width (3 find no marker)
 RADAR_WINDOW = (96, 128)  # the grid of (a)'s radar and flux checks, at the CONUS sector's centre
 RADAR_CHECK_CUT = (slice(600, 800), slice(1100, 1400))  # (b)'s 3D cut held to the CPU
 
@@ -3579,6 +3615,254 @@ def run_configured(device, card_line, goes_fields, config):
     return launches, by_shape, per_pair
 
 
+SHARDED_MESH = (2, 2)  # (n_t, n_x)
+SHARDED_SMALL = (8, 64, 96)
+SHARDED_FULL = (8,) + JOB_FRAME
+SHARDED_KW = {"hx": 24, "warp_radius": 21}  # the reference's edge-exact halo and band
+SHARDED_SMALL_ROUNDS = 64  # (a)'s flood cap, the reference test's
+SHARDED_FULL_ROUNDS = 8  # (b)'s cap: the reference's default (converged, (b) took 530 s)
+SHARDED_OWN_ROUNDS = 4  # (b)'s own-flow run: every part of the chain, fewer rounds, for time
+SHARDED_CONVERGED_ROUNDS = 4096  # the crop's cap: its floods stop at their convergence first
+SHARDED_CROP = (slice(None), slice(430, 1070), slice(500, 1140))  # 8x640x640 of (b)'s scene
+SHARDED_FLOW_KW = {"vr_steps": 1, "smoothing_passes": 1, "interp_method": "cubic"}
+SHARDED_AGREEMENT = 0.99
+SHARDED_LABELS = ("core_markers", "core_labels", "anvil_marker_labels", "thick_anvil_labels",
+                  "thin_anvil_labels")
+
+
+def single_card_chain(bt, wvd, swd, fwd, bwd, device, anvils=True):
+    """The single device's stages under the given flows, as numpy: the core
+    markers (``fused.core_markers``), their ``flow_label``, the anvil
+    markers (``get_anvil_markers``) and, with ``anvils``, the thick anvils
+    (``detect_anvils``, ``relabel_anvils``) and the thin ones, at the
+    sharded chain's thresholds."""
+    from tobac_flow_tpu_torch.detect import fused
+    from tobac_flow_tpu_torch.detect.detection import detect_anvils, relabel_anvils
+    from tobac_flow_tpu_torch.segment.label import flow_label
+
+    bt, wvd, swd, fwd, bwd = (torch.as_tensor(np.asarray(a)).to(device)
+                              for a in (bt, wvd, swd, fwd, bwd))
+    flow = Flow(fwd, bwd)
+    dt = torch.full((bt.shape[0], 1, 1), 5.0, device=device)
+    markers = fused.core_markers(bt, wvd, swd, fwd, bwd, dt, 0.25, 0.5, True)
+    out = {"core_markers": markers, "core_labels": flow_label(flow, markers)}
+    link = {"overlap": 0.5, "absolute_overlap": 4, "min_length": 3}
+    out["anvil_marker_labels"] = get_anvil_markers(flow, wvd - swd, threshold=-5.0, **link)
+    if anvils:
+        thick = detect_anvils(flow, wvd - swd, markers=out["anvil_marker_labels"],
+                              upper_threshold=-5.0, lower_threshold=-12.5, erode_distance=2,
+                              min_length=3)
+        out["thick_anvil_labels"] = relabel_anvils(
+            flow, thick, markers=out["anvil_marker_labels"], **link)
+        out["thin_anvil_labels"] = detect_anvils(
+            flow, wvd + swd, markers=out["thick_anvil_labels"], upper_threshold=0.0,
+            lower_threshold=-7.5, erode_distance=2, min_length=3)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def bijective(a, b):
+    """Do the paired labels of ``a`` and ``b`` (1-D) map one to one?"""
+    if a.size == 0:
+        return b.size == 0
+    a, b = a.astype(np.int64), b.astype(np.int64)
+    pairs = np.unique((a - a.min()) * (int(b.max() - b.min()) + 1) + (b - b.min()))
+    return pairs.size == np.unique(a).size == np.unique(b).size
+
+
+def held_to_single(sharded, single, what, floods=True):
+    """The reference test's bars: markers bit-equal, core labels the same
+    partition, anvil marker labels exact and (``floods``) thick and thin
+    anvils agreeing on at least SHARDED_AGREEMENT of their pixels.  Returns
+    the agreements."""
+    markers = single["core_markers"]
+    if not np.array_equal(sharded["core_markers"], markers):
+        raise AssertionError(f"{what}: core markers differ from the single card's at "
+                             f"{int((sharded['core_markers'] != markers).sum())} pixels")
+    core = sharded["core_labels"]
+    if not (((core != 0) == markers).all()
+            and bijective(core[markers], single["core_labels"][markers])):
+        raise AssertionError(f"{what}: core labels are not the single card's partition")
+    if not np.array_equal(sharded["anvil_marker_labels"], single["anvil_marker_labels"]):
+        raise AssertionError(f"{what}: anvil marker labels differ from the single card's")
+    agree = {}
+    for key in ("thick_anvil_labels", "thin_anvil_labels") if floods else ():
+        a, b = sharded[key], single[key]
+        both = (a != 0) | (b != 0)
+        agree[key] = float((a[both] == b[both]).mean()) if both.any() else 1.0
+        if b.max() < 1 or agree[key] < SHARDED_AGREEMENT:
+            raise AssertionError(f"{what}: {key} agree with the single card's at "
+                                 f"{agree[key]:.4f} ({int(b.max())} objects)")
+    return agree
+
+
+def sharded_by_shape(result):
+    """A job's ``ws_sweeps`` launches by shape key, summed over its ranks."""
+    counts = {}
+    for rank in result["ranks"]:
+        for (t, h, w, k), n in rank["launches_by_shape"].items():
+            key = shape_key((t, h, w), k)
+            counts[key] = counts.get(key, 0) + n
+    return counts
+
+
+def log_sharded_ranks(result, what, card_line, plan):
+    """Each rank's seconds by part, rounds, exchanges, peak memory against
+    its budget and kernel launches by shape."""
+    parts = ("flow", "cores", "core_labels", "anvil_prep", "gather", "host_markers",
+             "thick_flood", "host_thick", "thin_flood", "host_thin", "flow_label")
+    for rank in result["ranks"]:
+        st = rank["stats"]
+        budget = rank["budget"]
+        log(f"{what} rank {rank['rank']} at {rank['coords']} [{card_line}; {plan['ranks']} "
+            f"ranks on {max(plan['cards'], 1)} card(s), {plan['backend']}]: "
+            f"{rank['seconds']:.3f} s; " + ", ".join(
+                f"{p} {st[p + '_s']:.3f} s" for p in parts if p + "_s" in st)
+            + f"; rounds: core labels {st.get('core_label_rounds')}, hole fill "
+            f"{st.get('fill_rounds')}, thick {st.get('thick_barrier_rounds')} + "
+            f"{st.get('thick_flood_rounds')}, thin {st.get('thin_barrier_rounds')} + "
+            f"{st.get('thin_flood_rounds')} (barrier + mixed); exchanges "
+            f"{rank['exchange_s']:.3f} s (waits included), "
+            f"{rank['bytes_sent'] / 2**20:.1f} MiB sent; peak "
+            f"{(rank['peak_bytes'] - rank['start_bytes']) / 2**30:.3f} GiB over its start"
+            + (f" of a {budget / 2**30:.1f} GiB budget" if budget else "")
+            + f"; ws_sweeps launches {dict(sorted(sharded_by_shape({'ranks': [rank]}).items()))}")
+        if budget and rank["peak_bytes"] - rank["start_bytes"] > budget:
+            raise AssertionError(f"{what}: rank {rank['rank']} peaked over its budget")
+
+
+def check_sharded(device, card_line):
+    """Phase 16, the sharded chain (``parallel.pipeline.sharded_detect_all``)
+    on a SHARDED_MESH of ranks, started by ``parallel.launch.launch``; on
+    one card the ranks share it and talk over gloo through pinned host
+    memory, on one card each over NCCL.
+
+    (a) Card against CPU at SHARDED_SMALL (``make_multistorm_scene``) given
+    the single card's CLI-default flows: the card's ranks and gloo ranks on
+    the CPU give identical outputs, and ``sharded_flow_label`` of the cold
+    cloud too; both meet the reference test's bars against the single
+    card's chain (``held_to_single``); a (1, 1) mesh on card 0, over NCCL,
+    meets them as well.  (b) At the GOES job's frame, ``deep_scene`` at
+    SHARDED_FULL, given the single card's flows and then computing its own
+    (the CLI's passes), the floods at the reference's default cap of
+    SHARDED_FULL_ROUNDS rounds (SHARDED_OWN_ROUNDS with its own flows):
+    each rank's seconds by part, exchanges, peak memory against its budget
+    and kernel launches; core markers bit-equal to the single card's, core
+    labels its partition, anvil marker labels exact; with its own flows,
+    flows finite within the clip.  Converged, the floods take several
+    minutes on one card, so they run to convergence on SHARDED_CROP of
+    (b)'s scene and flows, held to the single card's chain there by (a)'s
+    bars.  The ranks start, and run (a) and the crop, beside this
+    process's own work on the card (the single card's sides, the (1, 1)
+    mesh); (b) waits for it.  Returns (the kernel's
+    launches by shape in (b) given flows, with its own flows, in the other
+    runs)."""
+    from tobac_flow_tpu_torch.parallel.dryrun import chain_jobs
+    from tobac_flow_tpu_torch.parallel.launch import launch, layout
+
+    t_start = time.perf_counter()
+    scene = prefetched(deep_scene, *SHARDED_FULL)
+    bt, wvd, swd = make_multistorm_scene(*SHARDED_SMALL)
+    flow = create_flow(bt, vr_steps=1, smoothing_passes=1, interp_method="cubic",
+                       device=device)
+    fwd, bwd = (f.cpu().numpy() for f in flow.flow)
+    del flow
+    small_kw = dict(SHARDED_KW, ws_sweeps=SHARDED_SMALL_ROUNDS)
+    job_a = {"fields": (bt, wvd, swd), "flows": (fwd, bwd), "kw": small_kw,
+             "label_mask": bt < 235.0, "label_halo": SHARDED_KW["warp_radius"]}
+    on_cpu = prefetched(lambda: launch(chain_jobs, *SHARDED_MESH, [job_a], device="cpu"))
+    full, made, waited = scene()
+    fields = tuple(full)
+    del full
+    flow = create_flow(fields[0], vr_steps=1, smoothing_passes=1, interp_method="cubic",
+                       device=device)
+    full_fwd, full_bwd = (f.cpu().numpy() for f in flow.flow)
+    del flow
+    crop = tuple(np.ascontiguousarray(a[SHARDED_CROP]) for a in (*fields, full_fwd, full_bwd))
+    # the ranks start, run (a) and the crop while this process computes the
+    # single card's sides; (b), timed, waits for the signal that they are done
+    signal = Path(tempfile.mkdtemp(prefix="tft_phase16_")) / "single_card_done"
+    atexit.register(shutil.rmtree, signal.parent, True)
+    full_kw = dict(SHARDED_KW, ws_sweeps=SHARDED_FULL_ROUNDS)
+    jobs = [job_a,
+            {"fields": crop[:3], "flows": crop[3:],
+             "kw": dict(SHARDED_KW, ws_sweeps=SHARDED_CONVERGED_ROUNDS)},
+            {"fields": fields, "flows": (full_fwd, full_bwd), "kw": full_kw,
+             "keep": SHARDED_LABELS[:3], "after": str(signal)},
+            {"fields": fields, "keep": (),
+             "kw": dict(SHARDED_KW, ws_sweeps=SHARDED_OWN_ROUNDS, **SHARDED_FLOW_KW)}]
+    plan = layout(SHARDED_MESH[0] * SHARDED_MESH[1], device)
+    log(f"sharded: launching {plan['ranks']} ranks on {plan['cards']} card(s), "
+        f"{plan['ranks_per_card']} a card, over {plan['backend']}; deep_scene{SHARDED_FULL} "
+        f"made in {made:.1f} s (waited {waited:.1f} s)")
+    t0 = time.perf_counter()
+    on_card = prefetched(lambda: launch(chain_jobs, *SHARDED_MESH, jobs, device=device))
+    try:
+        single_a = single_card_chain(bt, wvd, swd, fwd, bwd, device)
+        plan1 = layout(1, device)
+        one = launch(chain_jobs, 1, 1, [job_a], device=device)[0]
+        agree1 = held_to_single(one["outputs"], single_a, "sharded (a) on a (1, 1) mesh")
+        log(f"sharded (a) {SHARDED_SMALL} on a (1, 1) mesh on card 0 over {plan1['backend']}, "
+            f"beside the ranks' start: the reference test's bars against the single card hold "
+            f"(thick and thin agree {agree1}); {one['ranks'][0]['seconds']:.3f} s")
+        single_b = single_card_chain(*fields, full_fwd, full_bwd, device, anvils=False)
+        single_c = single_card_chain(*crop, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cpu = on_cpu()[0][0]
+    except BaseException:
+        signal.write_text("abort")  # the ranks stop at (b) instead of waiting for ever
+        on_card.thread.join()
+        raise
+    single_s = time.perf_counter() - t0
+    signal.write_text("go")
+    card_a, cropped, given, own = on_card()[0]
+    log(f"sharded: beside the ranks' start, (a) and the crop, this process ran (a) on the "
+        f"single card and the (1, 1) mesh and computed the single card's core markers, core "
+        f"labels and anvil markers at {SHARDED_FULL} and its chain on the {crop[0].shape} crop "
+        f"in {single_s:.1f} s; the ranks ran everything in "
+        f"{time.perf_counter() - t0:.1f} s, start-up and the scenes' hand-over included")
+
+    for name, a in card_a["outputs"].items():
+        if not np.array_equal(a, cpu["outputs"][name]):
+            raise AssertionError(f"sharded (a): the card's {name} differ from the CPU ranks'")
+    agree = held_to_single(card_a["outputs"], single_a, "sharded (a)")
+    log(f"sharded (a) {SHARDED_SMALL} on a {SHARDED_MESH} mesh: the card's ranks equal the "
+        f"CPU's gloo ranks in every output ({len(card_a['outputs'])}, sharded_flow_label "
+        f"included); against the single card: markers bit-equal, core labels its partition, "
+        f"anvil marker labels exact, thick and thin agree {agree} (floods capped at "
+        f"{SHARDED_SMALL_ROUNDS} rounds)")
+    log_sharded_ranks(card_a, "sharded (a)", card_line, plan)
+
+    agree_c = held_to_single(cropped["outputs"], single_c, "sharded (b) crop")
+    rounds = [r["stats"][f"{k}_{p}_rounds"] for r in cropped["ranks"] for k in ("thick", "thin")
+              for p in ("flood", "barrier")]
+    if max(rounds) >= SHARDED_CONVERGED_ROUNDS:
+        raise AssertionError("sharded (b) crop: a flood did not converge")
+    log(f"sharded (b) crop {crop[0].shape} converged [{card_line}]: "
+        f"{max(r['seconds'] for r in cropped['ranks']):.3f} s (slowest rank, beside the single "
+        f"card's sides); against the "
+        f"single card's chain: markers bit-equal, core labels its partition, anvil marker "
+        f"labels exact, thick and thin agree {agree_c}")
+    log_sharded_ranks(cropped, "sharded (b) crop", card_line, plan)
+
+    held_to_single(given["outputs"], single_b, "sharded (b)", floods=False)
+    for res, what in ((given, "given flows"), (own, "its own flows")):
+        rank0 = res["ranks"][0]
+        if not rank0["objects"]["thick_anvil_labels"] or not rank0["objects"]["core_labels"]:
+            raise AssertionError(f"sharded (b), {what}: no cores or no thick anvils")
+        if not (rank0["flow_finite"] and rank0["flow_max_abs"] <= 20.0):
+            raise AssertionError(f"sharded (b), {what}: flows not finite within the clip")
+        log(f"sharded (b) {SHARDED_FULL} on a {SHARDED_MESH} mesh, {what} [{card_line}]: "
+            f"{max(r['seconds'] for r in res['ranks']):.3f} s (slowest rank); objects "
+            f"{rank0['objects']}; flows finite, |flow| <= {rank0['flow_max_abs']:.2f}")
+        log_sharded_ranks(res, f"sharded (b), {what}", card_line, plan)
+    log(f"sharded (b): core markers bit-equal to the single card's, core labels its "
+        f"partition, anvil marker labels exact; phase 16 took "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return (sharded_by_shape(given), sharded_by_shape(own),
+            {**sharded_by_shape(card_a), **sharded_by_shape(one), **sharded_by_shape(cropped)})
+
+
 def check_and_time_new_shapes(by_shape, per_shape, device, card_line, before_plain=None):
     """The kernel against its plain version (bit-equal, connectivity 1) and
     timed at every (shape, K) of ``by_shape`` that ``per_shape`` lacks.
@@ -3804,6 +4088,10 @@ def main():
     del configured_fields
     start_radar_check = run_radar(device, card_line, conus, radar_made)
     del radar_made
+    # the sharded chain on a mesh of ranks: card against CPU, then the job's frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_by, sharded_own_by, sharded_small_by = check_sharded(device, card_line)
     # the kernel at the new shapes checked and timed in CUDA graphs while the
     # CPU sides of the statistics' and validation's cut checks run in
     # threads; then those checks ((c) first, as the statistics' forced
@@ -3820,14 +4108,16 @@ def main():
 
     worst = max(worst, check_and_time_new_shapes(
         {**goes_by_shape, **fit_by_shape, **deep_by_shape, **small_by_shape, **seviri_by_shape,
-         **configured_by_shape, **legacy_by_shape, **legacy_small_by_shape},
+         **configured_by_shape, **legacy_by_shape, **legacy_small_by_shape, **sharded_by,
+         **sharded_own_by, **sharded_small_by},
         per_shape, device, card_line, finish_checks))
     paths = {"fused_flow_watershed": by_shape, "run_detection_goes": goes_by_shape,
              "fused_flow_watershed_deep": deep_by_shape, "linking_deep": link_by_shape,
              "statistics": stats_by_shape, "validation": validation_by_shape,
              "dcc_detect_seviri_nat": seviri_by_shape,
              "run_detection_configured": configured_by_shape,
-             "dcc_detect_legacy": legacy_by_shape, "nexrad_gridding": {}}
+             "dcc_detect_legacy": legacy_by_shape, "nexrad_gridding": {},
+             "sharded_detect_all": sharded_by, "sharded_detect_all_own_flow": sharded_own_by}
 
     for key, row in per_shape.items():
         counts = [c.get(key, 0) for c in paths.values()]
@@ -3848,7 +4138,8 @@ def main():
         "name": "ws_spatial_sweeps", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": launches + goes_launches + deep_launches + seviri_launches
-        + configured_launches + legacy_launches,
+        + configured_launches + legacy_launches + sum(sharded_by.values())
+        + sum(sharded_own_by.values()),
         "max_abs_err": worst,
         "ms": both("ms"), "plain_ms": both("plain_ms"), "bound_ms": both("bound_ms"),
         "bound_by": "bytes" if both("bytes_ms") >= both("ops_ms") else "operations",
@@ -3860,7 +4151,9 @@ def main():
                "flood nothing, the SEVIRI native CLI's detection of its crop, and the "
                "configured chain's flow, cores and anvil markers at the GOES job's frame, "
                "whose subsegmentation floods in plane, the legacy CLI's path on the GOES "
-               "scene's first frames, and the radar gridding, which floods nothing): "
+               "scene's first frames, the radar gridding, which floods nothing, and the "
+               "sharded chain on a (2, 2) mesh at the GOES job's frame, given the single "
+               "card's flows and with its own, the launches of all its ranks): "
                "the sum over its "
                "launches_by_shape of launches x ms per launch, with the inputs cold in L2",
         "launches_by_path": {p: sum(c.values()) for p, c in paths.items()},

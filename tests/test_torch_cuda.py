@@ -672,3 +672,25 @@ def test_radar_histograms_on_card_equal_cpu(cuda, flip):
             a = a.cpu()
             assert torch.equal(torch.isnan(a), torch.isnan(b))
             assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def test_sharded_chain_on_card_ranks_equals_cpu_ranks(cuda):
+    """``sharded_detect_all`` and ``sharded_flow_label`` on a (2, 2) mesh
+    of ranks on the card(s) (gloo through pinned host memory where they
+    share one, NCCL where each has its own) against four gloo ranks on the
+    CPU, given the same flows: identical outputs; every rank's floods
+    launched the kernel."""
+    from tobac_flow_tpu_torch.parallel.dryrun import chain_jobs
+    from tobac_flow_tpu_torch.parallel.launch import launch
+
+    bt, wvd, swd = make_multistorm_scene(8, 64, 96)
+    flow = create_flow(bt, vr_steps=1, smoothing_passes=1, interp_method="cubic")
+    job = {"fields": (bt, wvd, swd), "flows": tuple(f.cpu().numpy() for f in flow.flow),
+           "kw": {"hx": 24, "warp_radius": 21, "ws_sweeps": 64}, "label_mask": bt < 235.0,
+           "label_halo": 21}
+    card = launch(chain_jobs, 2, 2, [job])[0]
+    cpu = launch(chain_jobs, 2, 2, [job], device="cpu")[0]
+    assert card["outputs"]["thick_anvil_labels"].max() >= 1
+    for name, a in card["outputs"].items():
+        assert np.array_equal(a, cpu["outputs"][name]), name
+    assert all(sum(r["launches_by_shape"].values()) > 0 for r in card["ranks"])

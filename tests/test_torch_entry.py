@@ -17,6 +17,10 @@ from tobac_flow_tpu_torch import (  # noqa: E402
 import time  # noqa: E402
 
 from tobac_flow_tpu_torch.device import resolve_device, stage  # noqa: E402
+from tobac_flow_tpu_torch.parallel import make_mesh  # noqa: E402
+from tobac_flow_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from tobac_flow_tpu_torch.parallel.launch import launch, layout  # noqa: E402
+from tests.torch_parallel_cases import mesh_facts, uneven_tile  # noqa: E402
 
 T, H, W = 3, 12, 16
 
@@ -34,7 +38,8 @@ ENTRIES = ["fused_flow_watershed", "device_flow", "watershed", "create_flow",
            "run_detection", "Flow.from_numpy", "detect_legacy", "get_curvature_filter",
            "get_peak_filter", "get_watershed_mask", "flow_network_watershed", "flow_label",
            "get_nexrad_hist", "get_3d_nexrad_hist", "regrid_nexrad", "grid_nexrad",
-           "regrid_latlon_to_abi", "grid_flux", "bin_to_latlon", "grid_flux_native"]
+           "regrid_latlon_to_abi", "grid_flux", "bin_to_latlon", "grid_flux_native",
+           "make_mesh", "launch", "dryrun_multichip"]
 
 
 def _grid():
@@ -91,6 +96,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, entry):
                                            interp_method="cubic"),
         "run_detection": lambda: run_detection(bt, bt - 260, bt - 250, times),
         "Flow.from_numpy": lambda: Flow.from_numpy(flow, flow),
+        "make_mesh": lambda: make_mesh(1, 1),
+        "launch": lambda: launch(mesh_facts, 1, 2),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
     }[entry]
     with pytest.raises(RuntimeError, match='device="cpu"'):
         call()
@@ -103,6 +111,29 @@ def test_cpu_when_asked():
     assert torch.equal(labels, same)
     assert set(np.unique(labels.numpy())) == {1, 2}
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_runs_on_cpu_ranks_when_asked():
+    """``launch(device="cpu")`` runs gloo ranks (a single rank in this
+    process; ``tests/test_torch_parallel.py`` holds a spawned mesh) and
+    returns rank 0's result; a rank that fails ends the run."""
+    one = launch(mesh_facts, 1, 1, device="cpu")
+    assert one == {"rank": 0, "coords": (0, 0), "device": "cpu", "backend": "gloo",
+                   "halo": [-1, 0, -1], "world": 1}
+    assert layout(4, "cpu") == {"device": "cpu", "ranks": 4, "cards": 0, "ranks_per_card": 0,
+                                "backend": "gloo"}
+    # 3 frames do not split over 2 ranks
+    with pytest.raises(Exception, match="T divisible by 2"):
+        launch(uneven_tile, 2, 1, device="cpu")
+
+
+def test_dryrun_on_cpu_ranks(capsys):
+    """The sharded chain's summary line on a CPU mesh (one rank, in this
+    process)."""
+    line = dryrun_multichip(1, device="cpu")
+    assert line.startswith("dryrun_multichip OK: mesh=(t=1, x=1), field shape=(2, 32, 32), "
+                           "outputs=8")
+    assert "backend=gloo" in line and line in capsys.readouterr().out
 
 
 def test_stage_records_seconds_and_span():

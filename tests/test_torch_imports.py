@@ -18,7 +18,8 @@ SOURCES = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"] + [
     PORT.parent / "tools" / name
     for name in ("torch_flood_memory.py", "torch_chunked_fixed_point.py",
                  "torch_goes_probe.py", "torch_scatter_min_forms.py",
-                 "torch_legacy_probe.py")]
+                 "torch_legacy_probe.py", "torch_sharded_probe.py",
+                 "torch_profile_probe.py")]
 
 
 def _imported_roots(tree):

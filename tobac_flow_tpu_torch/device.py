@@ -83,9 +83,21 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# processes sharing this process's card (the ranks of a mesh that the
+# launcher put on one card): each plans for its share of the free memory
+_RANKS_PER_CARD = [1]
+
+
+def set_ranks_per_card(n: int) -> None:
+    """Declare that ``n`` processes share this process's card, so that
+    :func:`memory_budget` gives this one a ``1/n`` share."""
+    _RANKS_PER_CARD[0] = max(1, int(n))
+
+
 def memory_budget(device, need=0) -> int | None:
     """Bytes that a stage may still allocate on ``device``: the card's free
-    memory less ``MEMORY_MARGIN`` of its total.  Where that is under
+    memory less ``MEMORY_MARGIN`` of its total, divided among the processes
+    that share the card (:func:`set_ranks_per_card`).  Where that is under
     ``need``, PyTorch's caching allocator first returns its unused blocks
     to the card (a cached block that a live tensor shares cannot be
     returned, and is not counted).  ``None`` on the CPU, where no stage is
@@ -93,12 +105,13 @@ def memory_budget(device, need=0) -> int | None:
     device = torch.device(device)
     if device.type != "cuda":
         return None
+    share = _RANKS_PER_CARD[0]
     free, total = torch.cuda.mem_get_info(device)
     margin = int(MEMORY_MARGIN * total)
-    if free - margin < need:
+    if (free - margin) // share < need:
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(device)
-    return max(0, free - margin)
+    return max(0, free - margin) // share
 
 
 def group_size(n, frame_px, bytes_per_px, device, group=None, reserve=0, halo=0,

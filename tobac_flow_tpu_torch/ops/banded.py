@@ -11,6 +11,8 @@ reference bit for bit.
   ``dx`` at the destination but reads the y-warped image.  Each pass clips
   its displacement to ±radius; outside the frame it reads the edge
   (``pad_mode="edge"``) or ``fill_value``.
+- ``banded_warp_axis``: a linear warp along one axis, the displacement
+  clipped to ±radius, ``fill_value`` (or the edge) outside the frame.
 - ``warp_banded_exact`` / ``warp_banded_exact_multi``: the cv2.remap-exact
   warp, both displacement components read at the destination, constant
   ``fill_value`` outside the frame.  A zero-weight tap contributes exactly
@@ -29,7 +31,8 @@ import torch
 from tobac_flow_tpu_torch.ops.warp import _cubic_weights, _linear_weights
 
 __all__ = [
-    "warp_banded", "warp_banded_multi", "warp_banded_exact", "warp_banded_exact_multi",
+    "banded_warp_axis", "warp_banded", "warp_banded_multi", "warp_banded_exact",
+    "warp_banded_exact_multi",
 ]
 
 # (first tap's offset from the floor, tap count, weight function) per method
@@ -68,6 +71,20 @@ def _axis_gather(img, pos, axis, fill_value, pad_mode):
         return out
     fill = torch.full((), fill_value, dtype=img.dtype, device=img.device)
     return torch.where((pos >= 0) & (pos < n), out, fill)
+
+
+def banded_warp_axis(img, disp, axis, radius, fill_value=math.nan, pad_mode="constant"):
+    """Linear warp of ``img`` along ``axis`` by the fractional ``disp``
+    (same shape), clipped to ±radius: ``(1 - f)·img[p + ⌊d⌋] +
+    f·img[p + ⌊d⌋ + 1]``, a zero-weight tap adding exactly 0; outside the
+    frame ``fill_value`` (or the edge sample with ``pad_mode="edge"``)."""
+    axis = axis % img.dim()
+    disp = disp.clamp(-float(radius), float(radius))
+    lo = torch.floor(disp)
+    frac = (disp - lo).to(img.dtype)
+    pos = _axis_index(img.shape, axis, img.device) + lo.long()
+    taps = [_axis_gather(img, pos + j, axis, fill_value, pad_mode) for j in (0, 1)]
+    return _weighted_sum((1.0 - frac, frac), taps)
 
 
 def warp_banded_multi(channels, flow, radius=20, method="linear",

@@ -242,19 +242,35 @@ def _symmetric_index(n, r, device):
 
 def _sepconv_reflect(data, kernels):
     """Separable correlation with symmetric borders, one axis after the
-    other: ``kernels`` is a sequence of (axis, taps or None).  Each output
-    is ``fma(k_0, p_0, k_1 p_1)``, then one fused multiply-add per further
-    tap, left to right, as the reference's compiled program rounds it."""
+    other: ``kernels`` is a sequence of (axis, taps or None).  The taps add
+    left to right, rounded as the reference's compiled program rounds them:
+    each tap's product fused into its add (``fma(k_0, p_0, k_1 p_1)``, then
+    ``fma(k_i, p_i, sum)``), except where taps read the same reflected
+    slice with the same float32 weight (an axis shorter than the kernel's
+    radius): the program computes their product once, rounds it, and adds
+    it plainly, and in the first add the other operand is the fused one."""
     for axis, kern in kernels:
         if kern is None:
             continue
         k = [float(np.float32(x)) for x in kern]
         r = len(k) // 2
         n = data.shape[axis]
-        padded = data.index_select(axis, _symmetric_index(n, r, data.device))
-        out = fma(k[0], padded.narrow(axis, 0, n), k[1] * padded.narrow(axis, 1, n))
+        index = _symmetric_index(n, r, torch.device("cpu"))
+        keys = [(tuple(index[i:i + n].tolist()), k[i]) for i in range(len(k))]
+        single = [keys.count(key) == 1 for key in keys]
+        padded = data.index_select(axis, index.to(data.device))
+
+        def tap(i):
+            return padded.narrow(axis, i, n)
+
+        if single[0]:
+            out = fma(k[0], tap(0), k[1] * tap(1))
+        elif single[1]:
+            out = fma(k[1], tap(1), k[0] * tap(0))
+        else:
+            out = k[0] * tap(0) + k[1] * tap(1)
         for i in range(2, len(k)):
-            out = fma(k[i], padded.narrow(axis, i, n), out)
+            out = fma(k[i], tap(i), out) if single[i] else out + k[i] * tap(i)
         data = out
     return data
 

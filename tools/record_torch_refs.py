@@ -6,8 +6,9 @@ against, where the JAX side takes more than a few seconds to run live
     PYTHONPATH=. JAX_PLATFORMS=cpu python tools/record_torch_refs.py [NAME ...]
 
 NAME is any of ``flow_qc``, ``detect_chain``, ``flow_models``,
-``subsegment``, ``configured_chain``, ``fused_scene`` and ``legacy``
-(all by default); each writes
+``subsegment``, ``configured_chain``, ``fused_scene``, ``legacy`` and
+``parallel`` (all by default; ``parallel`` runs on a virtual 8-device CPU
+mesh); each writes
 ``tests/data/NAME.npz``.  The scenes and settings are
 defined here and imported by the tests, so that a test reads exactly what
 was recorded for it.
@@ -425,6 +426,195 @@ def record_legacy():
     return {k: np.asarray(getattr(v, "values", v)) for k, v in out.items()}
 
 
+# -- the sharded path (tests/test_torch_parallel.py) -----------------------
+
+PARALLEL_MESH = (4, 2)  # (n_t, n_x): halos, flow labelling, the watershed
+PARALLEL_STEP_MESH = (2, 2)  # the detection step and the whole chain
+PARALLEL_STEP = dict(hx=17, warp_radius=6)
+PARALLEL_FLOW_STEP = dict(hx=4, ws_sweeps=2, vr_steps=1, smoothing_passes=1,
+                          interp_method="cubic", warp_radius=6)
+
+
+def parallel_label_scenes():
+    """Flow labelling: a random mask under zero flow, and an object that
+    hops 6 px a frame along x (linked only through the flow): (name ->
+    (mask, forward flow, backward flow, halo))."""
+    rng = np.random.default_rng(7)
+    t, h, w = 8, 16, 64
+    zf = np.zeros((t, h, w, 2), np.float32)
+    hop = np.zeros((t, h, w), bool)
+    for i in range(t):
+        hop[i, 6:10, 4 + 6 * i: 8 + 6 * i] = True
+    fwd, bwd = zf.copy(), zf.copy()
+    fwd[..., 0] = 6.0
+    bwd[..., 0] = -6.0
+    return {
+        "label_noise": (rng.random((t, h, w)) > 0.7, zf, zf, 4),
+        "label_hop": (hop, fwd, bwd, 8),
+        "label_hop_still": (hop, zf, zf, 8),
+    }
+
+
+def parallel_varying_scene():
+    """Flow labelling where the flow varies pixel to pixel (as a refined
+    flow does over noise): ``seeded_mask``'s irregular blobs at 8 x 24 x 32
+    under independent forward and backward flows drawn uniformly within
+    ±3 px: (mask, forward flow, backward flow, halo)."""
+    mask = seeded_mask(8, 24, 32, seed=0)
+    rng = np.random.default_rng(0)
+    fwd, bwd = (rng.uniform(-3, 3, mask.shape + (2,)).astype(np.float32) for _ in range(2))
+    return mask, fwd, bwd, 4
+
+
+def parallel_ws_scenes():
+    """The sharded watershed: one marker flooding across the x tiles, x and
+    y walls of masked-out pixels, and five advecting basins: (name ->
+    (field, markers, forward flow, backward flow, mask, max_rounds))."""
+    t, h, w = 8, 16, 64
+    zf = np.zeros((t, h, w, 2), np.float32)
+    flat = np.zeros((t, h, w), np.float32)
+    cross = np.zeros((t, h, w), np.int32)
+    cross[0, 4, 5] = 7
+    xwall = np.ones((t, h, w), bool)
+    xwall[:, :, 30:35] = False
+    xseeds = np.zeros((t, h, w), np.int32)
+    xseeds[:, :, 2] = 3
+    ywall = np.ones((t, h, w), bool)
+    ywall[:, 7:10, :] = False
+    yseeds = np.zeros((t, h, w), np.int32)
+    yseeds[:, 1, :] = 5
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    centres = [(4, 8), (4, 28), (10, 18), (10, 44), (4, 52)]
+    basins = np.empty((t, h, w), np.float32)
+    for i in range(t):
+        basins[i] = 10.0
+        for cy, cx in centres:
+            basins[i] = np.minimum(basins[i], 0.1 * ((yy - cy) ** 2 + (xx - cx - 1.0 * i) ** 2))
+    basins += rng.normal(0, 1e-3, basins.shape).astype(np.float32)
+    bseeds = np.zeros((t, h, w), np.int32)
+    for k, (cy, cx) in enumerate(centres):
+        bseeds[0, cy, cx] = k + 1
+    fwd, bwd = zf.copy(), zf.copy()
+    fwd[..., 0] = 1.0
+    bwd[..., 0] = -1.0
+    return {
+        "ws_cross": (flat, cross, zf, zf, None, 128),
+        "ws_xwall": (flat, xseeds, zf, zf, xwall, 128),
+        "ws_ywall": (flat, yseeds, zf, zf, ywall, 128),
+        "ws_basins": (basins, bseeds, fwd, bwd, None, 256),
+    }
+
+
+def parallel_step_scene():
+    """``growing_storm_scene(8, 48, 64, seed=2)``'s bt, wvd and swd."""
+    from tests.synthetic import growing_storm_scene
+
+    return tuple(np.asarray(a.values) for a in growing_storm_scene(t=8, h=48, w=64, seed=2))
+
+
+def parallel_flow_scene():
+    """A cold spot moving 2 px a frame along x, as (bt, wvd, swd) 8 x 16 x 64."""
+    t, h, w = 8, 16, 64
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    bt = np.stack([290 - 50 * np.exp(-((xx - 16 - 2 * i) ** 2 + (yy - 8) ** 2) / 18.0)
+                   for i in range(t)]).astype(np.float32)
+    return bt, (250 - bt) * 0.2 - 5, 5 - (290 - bt) * 0.07
+
+
+def banded_axis_case():
+    """An image, fractional displacements within ±5 px and the radius."""
+    rng = np.random.default_rng(11)
+    img = rng.normal(size=(3, 20, 24)).astype(np.float32)
+    disp = rng.uniform(-5, 5, img.shape).astype(np.float32)
+    disp[0, :4] = np.round(disp[0, :4])  # whole-pixel displacements stay exact
+    return img, disp, 4
+
+
+def stencil_case():
+    """A ±1-frame halo block (T + 2, H, W), flows within ±4 px and the taps."""
+    rng = np.random.default_rng(12)
+    data_h = rng.normal(size=(4, 16, 20)).astype(np.float32)
+    flow = rng.uniform(-4, 4, (2, 16, 20, 2)).astype(np.float32)
+    return data_h, flow, ((0, 0), (1, -1), (-1, 1))
+
+
+def record_parallel():
+    """The JAX package's sharded path on a virtual 8-device CPU mesh:
+    both halo exchanges, flow labelling, the watershed, the detection step
+    given flows and computing them, and the whole chain given flows."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_num_cpu_devices", 8)
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from tobac_flow_tpu.core.flow import create_flow
+    from tobac_flow_tpu.ops.banded import banded_warp_axis
+    from tobac_flow_tpu.parallel import halo
+    from tobac_flow_tpu.parallel.label import sharded_flow_label
+    from tobac_flow_tpu.parallel.mesh import make_mesh
+    from tobac_flow_tpu.parallel.pipeline import sharded_detect_all, sharded_detect_step
+    from tobac_flow_tpu.parallel.watershed import sharded_watershed
+
+    mesh = make_mesh(*PARALLEL_MESH)
+    spec = P("t", None, "x")
+    out = {}
+
+    def mapped(fn, data):
+        return np.asarray(jax.jit(jax.shard_map(fn, mesh=mesh, in_specs=spec,
+                                                out_specs=spec))(jnp.asarray(data)))
+
+    out["halo_t"] = mapped(lambda x: halo.halo_exchange_t(x, halo=1, fill_value=-1.0),
+                           np.arange(8 * 4 * 16, dtype=np.float32).reshape(8, 4, 16))
+    out["halo_x"] = mapped(lambda x: halo.halo_exchange_x(x, halo=2, fill_value=-1.0),
+                           np.arange(4 * 4 * 32, dtype=np.float32).reshape(4, 4, 32))
+    for name, (mask, fwd, bwd, hw) in parallel_label_scenes().items():
+        out[name] = np.asarray(sharded_flow_label(mesh, mask, fwd, bwd, halo=hw))
+    mask, fwd, bwd, hw = parallel_varying_scene()
+    out["label_varying"] = np.asarray(sharded_flow_label(mesh, mask, fwd, bwd, halo=hw))
+    for name, (field, markers, fwd, bwd, mask, rounds) in parallel_ws_scenes().items():
+        out[name] = np.asarray(sharded_watershed(mesh, field, markers, fwd, bwd, mask=mask,
+                                                 max_rounds=rounds))
+    img, disp, radius = banded_axis_case()
+    for axis in (-2, -1):
+        for mode in ("constant", "edge"):
+            out[f"banded_axis{axis}_{mode}"] = np.asarray(
+                banded_warp_axis(jnp.asarray(img), jnp.asarray(disp), axis, radius,
+                                 pad_mode=mode))
+
+    from tobac_flow_tpu.parallel.pipeline import _stencil_gather
+
+    data_h, flow, taps = stencil_case()
+    for dyx in (-1, 1):
+        out[f"stencil_{dyx}"] = np.stack([np.asarray(a) for a in _stencil_gather(
+            jnp.asarray(data_h), jnp.asarray(flow), dyx, taps, np.nan)])
+
+    bt, wvd, swd = parallel_step_scene()
+    cf = create_flow(bt, vr_steps=1, smoothing_passes=1, interp_method="cubic")
+    fwd = np.clip(np.asarray(cf.forward_flow), -6, 6)
+    bwd = np.clip(np.asarray(cf.backward_flow), -6, 6)
+    out["step_fwd"], out["step_bwd"] = fwd, bwd
+    step_mesh = make_mesh(*PARALLEL_STEP_MESH)
+    names = ("fwd", "bwd", "core_markers", "core_labels", "edges", "thick_labels",
+             "anvil_mask")
+    step = sharded_detect_step(step_mesh, bt, wvd, swd, flows=(fwd, bwd), ws_sweeps=2,
+                               **PARALLEL_STEP)
+    for name, a in zip(names[2:], step[2:]):
+        out[f"step_{name}_out"] = np.asarray(a)
+    chain = sharded_detect_all(step_mesh, bt, wvd, swd, flows=(fwd, bwd), ws_sweeps=64,
+                               **PARALLEL_STEP)
+    for name, a in chain.items():
+        if name not in ("forward_flow", "backward_flow"):
+            out[f"all_{name}"] = np.asarray(a)
+    free = sharded_detect_step(mesh, *parallel_flow_scene(), **PARALLEL_FLOW_STEP)
+    out["flow_step_fwd"], out["flow_step_bwd"] = np.asarray(free[0]), np.asarray(free[1])
+    assert out["step_core_markers_out"].sum() > 50
+    assert out["all_thick_anvil_labels"].max() >= 1 and out["all_thin_anvil_labels"].max() >= 1
+    return out
+
+
 RECORDS = {
     "flow_qc": record_flow_qc,
     "detect_chain": record_detect_chain,
@@ -433,6 +623,7 @@ RECORDS = {
     "configured_chain": record_configured_chain,
     "fused_scene": record_fused_scene,
     "legacy": record_legacy,
+    "parallel": record_parallel,
 }
 
 
